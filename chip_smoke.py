@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Proof that the PyTorch port runs on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+1. device   the card's name, count and power limit (exits 1 with no card);
+2. build    nvcc builds the port's kernels from ``src/repro_torch/csrc``
+            (one nvcc per source, all started together), with ptxas's
+            register / shared-memory / spill report;
+3. kernels  each kernel against its plain PyTorch version on the card, at
+            the shapes of the fluid engine's real phases, with the error and
+            the device time of both;
+4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
+            real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
+            card, held against the same call on the CPU, and moe@1024 on the
+            card alone; each run's kernel launch counts must equal phases x
+            steps (cca_step) and phases (steady_scan);
+5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU;
+6. profile  gpt@128 again, untraced and then under ``torch.profiler``: the
+            device's busy share of the wall time and its time by kernel.
+
+Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script exits non-zero without that line.  It imports nothing of JAX or of
+the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
+FP32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+STEPS = 200                  # the fluid engine's default control intervals
+K1_TOL = dict(rtol=1e-5, atol=1e-3)   # tests/test_kernels.py cca_step bar
+K3_TOL = dict(rtol=1e-5, atol=0.0, fluct_rtol=1e-4)   # tests/test_kernels.py steady_scan bars
+E2E_RTOL = 1e-4                       # FCTs, card vs CPU
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------- #
+# timing
+# ---------------------------------------------------------------------- #
+def device_ms(torch, fn, n: int = 50) -> tuple[float, float]:
+    """(device ms per call, host ms per call).  The calls are queued behind
+    a sleeping kernel, so the device runs them back to back and the events
+    time the device's work, not the host's enqueue; the host time says what
+    one call costs the caller."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)          # ~0.1 s at H100 clocks
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, host
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_errs(outs, refs, rtol: float, atol: float) -> tuple[float, float, bool]:
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    for o, r in zip(outs, refs):
+        d = (o - r).abs()
+        abs_err = max(abs_err, float(d.max()))
+        rel_err = max(rel_err, float((d / r.abs().clamp_min(1e-30)).max()))
+        ok = ok and bool((d <= atol + rtol * r.abs()).all())
+    return abs_err, rel_err, ok
+
+
+# ---------------------------------------------------------------------- #
+# phases
+# ---------------------------------------------------------------------- #
+def fluid_phases(scn):
+    """Every phase's FluidScenario: the host's share of a fluid run (phase
+    DAG, ECMP routing, incidence matrices), done here on its own."""
+    from repro_torch.net.fluid import FluidScenario
+    topo = scn.build_topology()
+    return [FluidScenario.from_flows(topo, [(f.fid, f.src, f.dst, f.size)
+                                            for f in ph.flows])
+            for ph in scn.build_phases() if ph.flows]
+
+
+def largest_phase(scn):
+    return max(fluid_phases(scn), key=lambda fs: fs.incidence.size)
+
+
+def k1_inputs(torch, fs, rng, batch: int | None):
+    """The phase's real incidence, rates and capacities, with a random
+    mid-run state (queues across the ECN ramp, some flows done)."""
+    F, L = fs.incidence.shape
+    shape = (batch,) if batch else ()
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32, order="C")).cuda()
+    line = np.broadcast_to(fs.line_rate, (*shape, F))
+    rtt0 = np.broadcast_to(fs.base_rtt, (*shape, F))
+    size = np.broadcast_to(fs.size, (*shape, F))
+    cap = 2 * line * rtt0
+    return dict(
+        R=t(line), W=t(np.maximum(rng.uniform(0.05, 1.0, (*shape, F)) * cap, 1000.0)),
+        alpha=t(rng.uniform(0, 1, (*shape, F))),
+        delivered=t(rng.uniform(0, 1.2, (*shape, F)) * size), size=t(size),
+        line=t(line), rtt0=t(rtt0),
+        M=t(np.broadcast_to(fs.incidence, (*shape, F, L))),
+        q=t(rng.uniform(0, 2e5, (*shape, L))),
+        bw=t(np.broadcast_to(fs.link_bw, (*shape, L))))
+
+
+def phase_kernels(torch, scenarios, rng) -> dict:
+    from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+    from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    phases = {name: largest_phase(scn) for name, scn in scenarios.items()}
+    cases = [(name, fs, None) for name, fs in phases.items()]
+    cases.append(("moe@128 x16", phases["moe@128"], 16))
+    for name, fs, batch in cases:
+        a = k1_inputs(torch, fs, rng, batch)
+        consts = dict(dt=1e-5)
+        out = cca_step(**a, **consts)
+        ref = cca_step_plain(**a, **consts)
+        torch.cuda.synchronize()
+        abs_err, rel_err, ok = max_errs(out, ref, **K1_TOL)
+        ms, host_ms = device_ms(torch, lambda a=a: cca_step(**a, **consts))
+        plain_ms, _ = device_ms(torch, lambda a=a: cca_step_plain(**a, **consts))
+        B = batch or 1
+        F, L = fs.incidence.shape
+        nbytes = 4 * B * (6 * F + F * L + 2 * L + 4 * F + L)
+        flops = B * (11 * F * L + 25 * F)
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(kernel="cca_step", case=name, B=B, F=F, L=L,
+                   max_abs_err=abs_err, max_rel_err=rel_err, tolerance=K1_TOL,
+                   ok=ok, ms=ms,
+                   host_ms_per_call=host_ms, plain_ms=plain_ms,
+                   plain_note="plain PyTorch version, not a yardstick",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **row)
+        check(ok, f"cca_step disagrees with its plain version at {name}: {row}")
+        rows[("cca_step", name)] = row
+
+    k3_cases = [(f"[{STEPS}, {fs.incidence.shape[0]}] {name}",
+                 rng.uniform(1e8, 1e10, (STEPS, fs.incidence.shape[0])), 20, 0.0, "time")
+                for name, fs in phases.items()]
+    k3_cases.append(("[16, 200, 128] batched", rng.uniform(1e8, 1e10, (16, STEPS, 128)),
+                     20, 0.0, "time"))
+    dead = np.zeros((130, 32))
+    dead[1] = 1500.0
+    dead[2] = rng.uniform(1e8, 1e10, 32)
+    k3_cases.append(("[130, 32] atol dead band", dead, 32, 2000.0, "series"))
+    for name, h, window, atol, layout in k3_cases:
+        ht = torch.from_numpy(h.astype(np.float32)).cuda()
+        # the fluid engine's histories are time-major: scan their transpose
+        hist = ht.transpose(-1, -2) if layout == "time" else ht
+        out = steady_scan(hist, window, atol)
+        ref = steady_scan_plain(hist, window, atol)
+        torch.cuda.synchronize()
+        fl_err = max_errs(out[:1], ref[:1], rtol=K3_TOL["fluct_rtol"], atol=0.0)
+        abs_err, rel_err, ok = max_errs(out[1:], ref[1:], K3_TOL["rtol"], K3_TOL["atol"])
+        ok = ok and fl_err[2]
+        if atol:
+            ok = ok and float(out[0][0]) == 0.0 and float(out[0][1]) == 0.0
+        ms, host_ms = device_ms(torch, lambda: steady_scan(hist, window, atol))
+        plain_ms, _ = device_ms(torch, lambda: steady_scan_plain(hist, window, atol))
+        n_series = hist.numel() // hist.shape[-1]
+        nbytes = 4 * n_series * (window + 2)
+        flops = 3 * n_series * window + 4 * n_series
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(kernel="steady_scan", case=name, window=window, atol=atol,
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   fluct_max_rel_err=fl_err[1], tolerance=K3_TOL, ok=ok, ms=ms,
+                   host_ms_per_call=host_ms, plain_ms=plain_ms,
+                   plain_note="plain PyTorch version, not a yardstick",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **row)
+        check(ok, f"steady_scan disagrees with its plain version at {name}: {row}")
+        rows[("steady_scan", name)] = row
+    return rows
+
+
+def compare_results(a, b, what: str) -> dict:
+    check(set(a.fcts) == set(b.fcts), f"{what}: flow sets differ")
+    errs = [abs(a.fcts[k] - b.fcts[k]) / b.fcts[k] for k in b.fcts]
+    fin = all(np.isfinite(v) and v > 0 for v in a.fcts.values())
+    it_err = abs(a.iteration_time - b.iteration_time) / b.iteration_time
+    check(fin, f"{what}: non-finite or non-positive FCTs")
+    check(max(errs) <= E2E_RTOL and it_err <= E2E_RTOL,
+          f"{what}: card vs CPU max FCT rel err {max(errs)}, iteration {it_err}")
+    return dict(max_fct_rel_err=max(errs), iteration_rel_err=it_err)
+
+
+def phase_e2e(torch, scenarios, launches: dict) -> None:
+    from repro_torch.api import run
+    from repro_torch.kernels.cca_step import cca_step
+    from repro_torch.kernels.steady_scan import steady_scan
+    for name, scn in scenarios.items():
+        n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+        cca_step.launches = steady_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(scn, backend="fluid")             # the card is the default
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cca_step=cca_step.launches, steady_scan=steady_scan.launches)
+        for k, v in counts.items():
+            launches[k] += v
+        check(counts == dict(cca_step=n_phases * STEPS, steady_scan=n_phases),
+              f"{name}: launches {counts}, expected {n_phases} phases x {STEPS} steps")
+        t0 = time.perf_counter()
+        fluid_phases(scn)
+        host_prep = time.perf_counter() - t0
+        row = dict(scenario=name, phases_with_flows=n_phases, flows=len(res.fcts),
+                   launches=counts, wall_s=wall, engine_wall_s=res.wall_time,
+                   host_prep_s=host_prep,
+                   iteration_time=res.iteration_time, device=res.extras["device"])
+        if name != "moe@1024":          # the CPU reference at this width takes minutes
+            t0 = time.perf_counter()
+            cpu = run(scn, backend="fluid", device="cpu")
+            row["cpu_wall_s"] = time.perf_counter() - t0
+            row.update(compare_results(res, cpu, name))
+        else:
+            check(all(np.isfinite(v) and v > 0 for v in res.fcts.values())
+                  and res.iteration_time > 0, f"{name}: bad FCTs")
+        emit("e2e", **row)
+
+
+def phase_profile(torch, name: str, scn) -> None:
+    """One traced run: the device's busy share and its time by kernel.  The
+    trace's own cost lengthens the traced wall, so the busy share is also
+    given against the untraced wall of a second run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import run
+    run(scn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(scn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(scn)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    emit("profile", scenario=name, wall_s=wall, traced_wall_s=traced_wall,
+         device_busy_s=busy if busy > 0 else "not measured",
+         busy_share_of_wall=busy / wall if busy > 0 else "not measured",
+         kernels=[dict(name=e.key[:60], count=e.count,
+                       device_s=e.self_device_time_total / 1e6) for e in top])
+
+
+def flow_scenarios(n: int, rng):
+    from repro_torch.api import FlowSpec, Scenario, TopologySpec
+    out = []
+    for i in range(n):
+        pairs = set()
+        while len(pairs) < 16 + 8 * i:
+            s, d = (int(x) for x in rng.integers(0, 64, 2))
+            if s != d:
+                pairs.add((s, d))
+        flows = [FlowSpec(fid, s, d, size=float(rng.uniform(1e6, 1e8)),
+                          start=float(rng.choice([0.0, 1e-3])))
+                 for fid, (s, d) in enumerate(sorted(pairs))]
+        out.append(Scenario(f"flows{i}", TopologySpec(
+            "clos", {"n_hosts": 64, "leaf_down": 16, "n_spines": 4}), flows=flows))
+    return out
+
+
+def phase_batch(torch, rng) -> None:
+    from repro_torch.api import run_many
+    from repro_torch.kernels.cca_step import cca_step
+    from repro_torch.kernels.steady_scan import steady_scan
+    scns = flow_scenarios(8, rng)
+    cca_step.launches = steady_scan.launches = 0
+    t0 = time.perf_counter()
+    res = run_many(scns, backend="fluid")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cca_step=cca_step.launches, steady_scan=steady_scan.launches)
+    check(counts == dict(cca_step=STEPS, steady_scan=1),
+          f"batch: launches {counts}, expected {STEPS} and 1")
+    cpu = run_many(scns, backend="fluid", device="cpu")
+    errs = [compare_results(a, b, a.scenario) for a, b in zip(res, cpu)]
+    emit("batch", scenarios=len(scns), flows=sum(len(r.fcts) for r in res),
+         launches=counts, wall_s=wall,
+         max_fct_rel_err=max(e["max_fct_rel_err"] for e in errs))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.api import training_scenario
+    from repro_torch.kernels.build import load
+
+    smi = nvidia_smi()
+    device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+                  count=torch.cuda.device_count())
+    emit("device", **device, nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    libs = load("cca_step", "steady_scan")
+    emit("build", seconds=time.perf_counter() - t0,
+         ptxas={n: [ln for ln in lib.log.splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling" in ln]
+                for n, lib in libs.items()})
+
+    rng = np.random.default_rng(0)
+    scenarios = {"gpt@128": training_scenario(n_gpus=128, scale=1.0),
+                 "moe@128": training_scenario(n_gpus=128, moe=True, scale=1.0),
+                 "moe@1024": training_scenario(n_gpus=1024, moe=True, scale=1.0)}
+    rows = phase_kernels(torch, scenarios, rng)
+
+    launches = {"cca_step": 0, "steady_scan": 0}
+    phase_e2e(torch, scenarios, launches)
+    phase_batch(torch, rng)
+    phase_profile(torch, "gpt@128", scenarios["gpt@128"])
+
+    k1 = rows[("cca_step", "moe@1024")]
+    k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
+    kernels = [
+        dict(name="cca_step", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
+             replaces="src/repro/kernels/cca_step/kernel.py:27",
+             launches=launches["cca_step"], max_abs_err=k1["max_abs_err"],
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="steady_scan", route="cuda", source="src/repro_torch/csrc/steady_scan.cu",
+             replaces="src/repro/kernels/steady_scan/kernel.py:22",
+             launches=launches["steady_scan"], max_abs_err=k3["max_abs_err"],
+             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

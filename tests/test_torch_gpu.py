@@ -1,0 +1,108 @@
+"""The port's hand-written CUDA kernels on the card, against their plain
+PyTorch versions, and the fluid engine through them against its CPU run.
+
+Every test here takes the ``cuda`` fixture and skips where there is no
+card.  The file imports no JAX (the machine with the card has none); the
+JAX parity of the plain versions is ``tests/test_torch_kernels.py`` and
+``tests/test_torch_fluid.py``.  On the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, run_many, training_scenario
+from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
+
+pytestmark = pytest.mark.gpu
+RNG = np.random.default_rng(5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in full float32
+    return torch.device("cuda")
+
+
+def _cca_inputs(F, L, batch=(), device="cpu"):
+    """tests/test_kernels.py's state distribution."""
+    M = (RNG.random((*batch, F, L)) < 0.3).astype(np.float32)
+    M[..., 0] = 1.0
+    f = lambda lo, hi, n: RNG.uniform(lo, hi, (*batch, n))
+    a = dict(R=f(1e8, 1e10, F), W=f(1e4, 1e6, F), alpha=f(0, 1, F),
+             delivered=f(0, 1e6, F), size=f(5e5, 2e6, F),
+             line=np.full((*batch, F), 12.5e9), rtt0=f(5e-6, 2e-5, F),
+             M=M, q=f(0, 2e5, L), bw=np.full((*batch, L), 12.5e9))
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in a.items()}
+
+
+@pytest.mark.parametrize("F,L,B", [(1, 1, None), (64, 64, None), (129, 96, None),
+                                   (1024, 400, None), (100, 40, 16)])
+def test_cca_step_kernel_matches_plain(cuda, F, L, B):
+    a = _cca_inputs(F, L, batch=(B,) if B else (), device=cuda)
+    launches = cca_step.launches
+    out = cca_step(**a, dt=1e-5)
+    ref = cca_step_plain(**a, dt=1e-5)
+    torch.cuda.synchronize()
+    assert cca_step.launches == launches + 1
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-3)
+
+
+def test_cca_step_kernel_refuses_a_non_contiguous_input(cuda):
+    a = _cca_inputs(64, 32, device=cuda)
+    M_t = a["M"].T.contiguous().T                      # same values, column-major
+    with pytest.raises(ValueError, match="contiguous"):
+        cca_step(**{**a, "M": M_t}, dt=1e-5)
+
+
+def test_steady_scan_kernel_matches_plain(cuda):
+    hist = torch.tensor(RNG.uniform(1e8, 1e10, (4, 200, 300)), dtype=torch.float32,
+                        device=cuda)
+    for h in (hist.transpose(1, 2), hist[0].T, hist[0]):
+        launches = steady_scan.launches
+        fl, mn = steady_scan(h, 20)
+        fr, mr = steady_scan_plain(h, 20)
+        assert steady_scan.launches == launches + 1
+        torch.testing.assert_close(fl, fr, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(mn, mr, rtol=1e-5, atol=0.0)
+    dead = torch.zeros(130, 32, device=cuda)          # crosses a 128-series block
+    dead[1] = 1500.0
+    dead[2] = torch.linspace(1e8, 1e10, 32, device=cuda)
+    fl, _ = steady_scan(dead, 32, atol=2000.0)
+    fr, _ = steady_scan_plain(dead, 32, atol=2000.0)
+    torch.testing.assert_close(fl, fr, rtol=1e-4, atol=0.0)
+    assert float(fl[0]) == 0.0 and float(fl[1]) == 0.0
+
+
+def _close(a, b):
+    assert set(a.fcts) == set(b.fcts)
+    for fid, fct in b.fcts.items():
+        assert a.fcts[fid] == pytest.approx(fct, rel=1e-4), fid
+    assert a.iteration_time == pytest.approx(b.iteration_time, rel=1e-4)
+
+
+def test_run_on_card_goes_through_the_kernels(cuda):
+    scn = training_scenario(n_gpus=32, moe=True)
+    n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    cca_step.launches = steady_scan.launches = 0
+    card = run(scn)                                  # the card is the default
+    assert (cca_step.launches, steady_scan.launches) == (n_phases * 200, n_phases)
+    assert card.extras["device"] == torch.cuda.get_device_name(0)
+    _close(card, run(scn, device="cpu"))
+
+
+def test_run_many_on_card_is_one_batched_run(cuda):
+    topo = TopologySpec("clos", {"n_hosts": 16, "leaf_down": 4, "n_spines": 2})
+    scns = [Scenario(f"s{i}", topo, flows=[
+        FlowSpec(j, j, 8 + (j + i) % 8, size=1e6 * (i + 1)) for j in range(4 + i)])
+        for i in range(4)]
+    cca_step.launches = steady_scan.launches = 0
+    card = run_many(scns, steps=120)
+    assert (cca_step.launches, steady_scan.launches) == (120, 1)
+    for a, b in zip(card, run_many(scns, steps=120, device="cpu")):
+        _close(a, b)
