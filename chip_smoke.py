@@ -10,8 +10,10 @@ Phases, one JSON line each:
             (one nvcc per source, all started together), with ptxas's
             register / shared-memory / spill report;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the shapes of the fluid engine's real phases, with the error and
-            the device time of both;
+            the shapes of the fluid engine's real phases and of the analytic
+            engine's largest solves (plus the max-min solver's ceiling and
+            degenerate cases), with the error and the device time of both;
+            ``maxmin`` must equal its plain version bit for bit;
 4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
             real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
             card, held against the same call on the CPU, and moe@1024 on the
@@ -19,7 +21,14 @@ Phases, one JSON line each:
             steps (cca_step) and phases (steady_scan);
 5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU;
 6. profile  gpt@128 again, untraced and then under ``torch.profiler``: the
-            device's busy share of the wall time and its time by kernel.
+            device's busy share of the wall time and its time by kernel;
+7. analytic ``repro_torch.api.run(..., backend="analytic")`` (host-only, exact)
+            for gpt@128, moe@128 and moe@1024 at ``scale=1.0``; the same run
+            built by hand (simulator + workload driver, with a flow table
+            that records every solve) must equal it bit for bit, and every
+            recorded solve is replayed on the card through
+            ``maxmin_rates_torch(..., impl="kernel")``, held to the exact
+            rates at rtol 1e-4, with one ``maxmin`` launch per solve.
 
 Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -45,6 +54,7 @@ STEPS = 200                  # the fluid engine's default control intervals
 K1_TOL = dict(rtol=1e-5, atol=1e-3)   # tests/test_kernels.py cca_step bar
 K3_TOL = dict(rtol=1e-5, atol=0.0, fluct_rtol=1e-4)   # tests/test_kernels.py steady_scan bars
 E2E_RTOL = 1e-4                       # FCTs, card vs CPU
+K2_RTOL = 1e-4                        # dense float32 solver vs the exact one (tests/test_maxmin.py)
 
 
 def emit(phase: str, **fields) -> None:
@@ -325,6 +335,135 @@ def phase_batch(torch, rng) -> None:
          max_fct_rel_err=max(e["max_fct_rel_err"] for e in errs))
 
 
+def recording_table():
+    """A FlowTable that keeps every solve's CSR paths, so the analytic
+    engine's solves can be replayed through the dense solver."""
+    from repro_torch.net.soa import FlowTable
+
+    class RecordingTable(FlowTable):
+        __slots__ = ("solves",)
+
+        def __init__(self) -> None:
+            super().__init__()
+            self.solves = []
+
+        def solve_rates(self, fids, link_bw):
+            fids = list(fids)
+            _, links, off = self.csr(fids)
+            self.solves.append((links, off))
+            return super().solve_rates(fids, link_bw)
+    return RecordingTable()
+
+
+def record_analytic(scn) -> dict:
+    """The analytic run built by hand: simulator, workload driver and a
+    recording flow table."""
+    from repro_torch.api import AnalyticSim
+    from repro_torch.workload.driver import WorkloadDriver
+    topo = scn.build_topology()
+    sim = AnalyticSim(topo)
+    sim.flow_table = recording_table()
+    driver = WorkloadDriver(sim, scn.build_phases())
+    t0 = time.perf_counter()
+    sim.run()
+    wall = time.perf_counter() - t0
+    check(driver.finished, f"{scn.name}: hand-built analytic run did not finish")
+    return dict(sim=sim, driver=driver, solves=sim.flow_table.solves,
+                link_bw=topo.link_bw, wall=wall)
+
+
+def maxmin_cases(recorded: dict) -> list:
+    """(name, inc, cap): the largest solve of each recorded analytic run,
+    the reference's 10k-flow ceiling, and the degenerate cases."""
+    from repro_torch.kernels.maxmin.ops import incidence_from_csr, paths_to_arrays
+    cases = []
+    for name, rec in recorded.items():
+        links, off = max(rec["solves"], key=lambda lo: len(np.unique(lo[0])) * (len(lo[1]) - 1))
+        cases.append((f"{name} largest solve", *incidence_from_csr(links, off, rec["link_bw"])))
+    rng = np.random.default_rng(11)                # tests/test_maxmin.py's ceiling case
+    F, L = 10_000, 128
+    links = rng.random((F, L)).argpartition(3, axis=1)[:, :3].astype(np.int64).ravel()
+    off = np.arange(0, 3 * (F + 1), 3, dtype=np.int64)
+    cases.append(("10k x 128 ceiling", *incidence_from_csr(links, off, rng.uniform(1e9, 1e10, L))))
+    for name, paths, bw in [("zero-bandwidth link", {1: [0, 1], 2: [1]}, [5.0, 0.0]),
+                            ("single flow", {1: [0]}, [7.0]),
+                            ("no links", {1: [], 2: []}, [7.0])]:
+        _, links, off = paths_to_arrays(paths)
+        cases.append((name, *incidence_from_csr(links, off, bw)))
+    return cases
+
+
+def maxmin_kernels(torch, recorded: dict, rows: dict) -> None:
+    from repro_torch.kernels.maxmin import maxmin, maxmin_plain
+    for name, inc_np, cap_np in maxmin_cases(recorded):
+        inc = torch.from_numpy(inc_np).cuda()
+        cap = torch.from_numpy(cap_np).cuda()
+        F, L = inc.shape
+        launches = maxmin.launches
+        out, rounds = maxmin(inc, cap, with_rounds=True)
+        ref, ref_rounds = maxmin_plain(inc, cap, with_rounds=True)
+        torch.cuda.synchronize()
+        launched = maxmin.launches - launches
+        ok = torch.equal(out, ref) and int(rounds) == int(ref_rounds)
+        ok = ok and launched == (1 if L else 0)
+        row = dict(kernel="maxmin", case=name, F=F, L=L,
+                   max_abs_err=float((out - ref).abs().max()) if F else 0.0,
+                   tolerance="bit-equal (torch.equal)", ok=ok,
+                   effective_rounds=int(rounds), static_rounds=max(L, 1))
+        if L:
+            ms, host_ms = device_ms(torch, lambda: maxmin(inc, cap))
+            plain_ms, _ = device_ms(torch, lambda: maxmin_plain(inc, cap), n=3)
+            nbytes = 4 * (F * L + L + F)
+            flops = 3 * 2 * F * L * max(int(rounds), 1)
+            b_ms, b_by = bound(nbytes, flops)
+            row.update(ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
+                       plain_note="plain PyTorch version (static L rounds), not a yardstick",
+                       bound_ms=b_ms, bound_by=b_by)
+        else:
+            row.update(ms=None, note="no links: the wrapper answers without a launch")
+        emit("kernels", **row)
+        check(ok, f"maxmin disagrees with its plain version at {name}: {row}")
+        rows[("maxmin", name)] = row
+
+
+def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> None:
+    from repro_torch.api import run
+    from repro_torch.kernels.maxmin import maxmin, maxmin_rates_arrays, maxmin_rates_torch
+    for name, scn in scenarios.items():
+        t0 = time.perf_counter()
+        res = run(scn, backend="analytic")
+        wall = time.perf_counter() - t0
+        rec = recorded[name]
+        sim = rec["sim"]
+        check({fid: r.fct for fid, r in sim.results.items()} == res.fcts
+              and sim.events_processed == res.events_processed
+              and rec["driver"].iteration_time == res.iteration_time,
+              f"{name}: the hand-built analytic run differs from the engine's")
+        check(all(np.isfinite(v) and v > 0 for v in res.fcts.values())
+              and res.iteration_time > 0, f"{name}: bad analytic FCTs")
+        solves = rec["solves"]
+        worst, t_replay = 0.0, 0.0
+        maxmin.launches = 0
+        for links, off in solves:
+            t0 = time.perf_counter()
+            got = maxmin_rates_torch(links, off, rec["link_bw"], impl="kernel")
+            t_replay += time.perf_counter() - t0
+            exact = maxmin_rates_arrays(links, off, rec["link_bw"])
+            err = float(np.max(np.abs(got - exact) / np.maximum(np.abs(exact), 1e-30)))
+            check(err <= K2_RTOL and got.shape == exact.shape,
+                  f"{name}: replayed solve off the exact rates by {err}")
+            worst = max(worst, err)
+        n = maxmin.launches
+        launches["maxmin"] += n
+        check(n == len(solves), f"{name}: {n} maxmin launches for {len(solves)} solves")
+        largest = max(solves, key=lambda lo: len(lo[1]))
+        emit("analytic", scenario=name, flows=len(res.fcts), events=res.events_processed,
+             solves=len(solves), maxmin_launches=n, host_wall_s=wall,
+             engine_wall_s=res.wall_time, hand_built_wall_s=rec["wall"],
+             iteration_time=res.iteration_time, largest_solve_flows=len(largest[1]) - 1,
+             replay_wall_s=t_replay, worst_k2_rel_err_vs_exact=worst, tolerance=K2_RTOL)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -342,7 +481,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    libs = load("cca_step", "steady_scan")
+    libs = load("cca_step", "steady_scan", "maxmin")
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln for ln in lib.log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -353,14 +492,18 @@ def main() -> int:
                  "moe@128": training_scenario(n_gpus=128, moe=True, scale=1.0),
                  "moe@1024": training_scenario(n_gpus=1024, moe=True, scale=1.0)}
     rows = phase_kernels(torch, scenarios, rng)
+    recorded = {name: record_analytic(scn) for name, scn in scenarios.items()}
+    maxmin_kernels(torch, recorded, rows)
 
-    launches = {"cca_step": 0, "steady_scan": 0}
+    launches = {"cca_step": 0, "steady_scan": 0, "maxmin": 0}
     phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
+    phase_analytic(torch, scenarios, recorded, launches)
 
     k1 = rows[("cca_step", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
+    k2 = rows[("maxmin", "moe@1024 largest solve")]
     kernels = [
         dict(name="cca_step", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
              replaces="src/repro/kernels/cca_step/kernel.py:27",
@@ -372,6 +515,11 @@ def main() -> int:
              launches=launches["steady_scan"], max_abs_err=k3["max_abs_err"],
              ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None),
+        dict(name="maxmin", route="cuda", source="src/repro_torch/csrc/maxmin.cu",
+             replaces="src/repro/kernels/maxmin/kernel.py:30",
+             launches=launches["maxmin"], max_abs_err=k2["max_abs_err"],
+             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

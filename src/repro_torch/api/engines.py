@@ -5,20 +5,26 @@ run store: nothing keys a result by backend name across the two packages.
 
     fluid     DCTCP fluid rate dynamics through the hand-written ``cca_step``
               and ``steady_scan`` kernels (batched sweeps in ``run_batch``)
+    analytic  flow-level max-min fair sharing, on the host (cheapest,
+              coarsest)
 
-Every engine runs on the CUDA card unless the caller passes
-``device="cpu"``; with no card and no ``device``, ``run`` raises.
+The fluid engine runs on the CUDA card unless the caller passes
+``device="cpu"``; with no card and no ``device``, ``run`` raises.  The
+analytic engine takes no ``device``: it runs on the host in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
+from repro_torch.api.analytic import AnalyticSim
 from repro_torch.api.results import RunResult
 from repro_torch.api.scenario import Scenario
 from repro_torch.device import device_name, resolve_device
 from repro_torch.net import chaos as chaos_mod
 from repro_torch.net.fluid import (FluidScenario, fluid_converged_rates,
                                    sweep_converged_rates)
+from repro_torch.workload.driver import WorkloadDriver
 
 _REGISTRY: dict[str, type] = {}
 
@@ -151,3 +157,64 @@ class FluidEngine(Engine):
                 extras={"rates": rate_map, "batch_wall": wall,
                         "device": device_name(dev)}))
         return out
+
+
+# ---------------------------------------------------------------------- #
+# analytic backend (flow-level max-min fair sharing)
+# ---------------------------------------------------------------------- #
+def _drive(scenario: Scenario, sim) -> WorkloadDriver | None:
+    if scenario.kind == "workload":
+        return WorkloadDriver(sim, scenario.build_phases())
+    for fl in scenario.flows:
+        sim.add_flow(dataclasses.replace(fl))
+    plan = chaos_mod.plan_for(scenario)
+    if plan is not None:
+        # flow scenarios skip the phase DAG, so the phase-level mice
+        # injectors land here: each arrival is a plain flow whose start
+        # carries the phase's compute (= the Poisson arrival time)
+        for ph in plan.mice_phases(scenario._n_hosts()):
+            sim.add_flow(dataclasses.replace(ph.flows[0], start=ph.compute))
+    return None
+
+
+def _collect(backend: str, scenario: Scenario, sim, driver,
+             wall: float) -> RunResult:
+    if driver is not None:
+        assert driver.finished, f"{scenario.name}: program did not finish"
+        iteration = driver.iteration_time
+    elif sim.results:
+        iteration = (max(r.finish for r in sim.results.values())
+                     - min(r.start for r in sim.results.values()))
+    else:
+        iteration = None
+    return RunResult(
+        backend=backend, scenario=scenario.name,
+        fcts={fid: r.fct for fid, r in sim.results.items()},
+        flow_bytes={fid: r.bytes for fid, r in sim.results.items()},
+        tags={fid: r.tag for fid, r in sim.results.items()},
+        iteration_time=iteration, events_processed=sim.events_processed,
+        wall_time=wall)
+
+
+@register_engine("analytic")
+class AnalyticEngine(Engine):
+    """Progressive max-min fair-share model — the flow-level abstraction the
+    paper positions against (§2.2).  Shares the WorkloadDriver, so it runs
+    the same phase DAGs the packet backends do.
+
+    It does its work on the host in float64, through the exact solver, as
+    the reference does (whose analytic engine imports no JAX either), and
+    takes no ``device``: its results are the reference's bit for bit.  The
+    card's part of the max-min solver is ``maxmin_rates_torch``
+    (``repro_torch.kernels.maxmin``), which this engine does not call."""
+    option_names = ("until",)
+
+    def run(self, scenario: Scenario, until: float = float("inf"),
+            **opts) -> RunResult:
+        chaos_mod.check_backend(chaos_mod.plan_for(scenario), self.name)
+        sim = AnalyticSim(scenario.build_topology())
+        driver = _drive(scenario, sim)
+        t0 = time.perf_counter()
+        sim.run(until=until)
+        wall = time.perf_counter() - t0
+        return _collect(self.name, scenario, sim, driver, wall)

@@ -3,6 +3,9 @@ reference's Pallas set that the port has reached:
 
   cca_step     the fused DCTCP fluid step (every step of the fluid engine)
   steady_scan  trailing-window max/min/mean over rate histories
+  maxmin       dense max-min water-filling (``maxmin_rates_torch``); the
+               package also holds the exact host solver the analytic
+               engine runs
 
 Each package holds the wrapper, with its launch count, and the plain
 PyTorch version of the same function; the CUDA sources live in

@@ -181,6 +181,6 @@ def test_run_many_refuses_workers_and_registry_is_the_ports_own():
     scn = Scenario.from_dict(wave_scenario().to_dict())
     with pytest.raises(ValueError, match="workers=2"):
         run_many([scn], workers=2, device="cpu")
-    assert available_backends() == ("fluid",)
+    assert available_backends() == ("analytic", "fluid")
     with pytest.raises(ValueError, match="unknown backend 'packet'"):
         run(scn, backend="packet", device="cpu")

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, run_many, training_scenario
 from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_arrays,
+                                        maxmin_rates_torch)
 from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 
 pytestmark = pytest.mark.gpu
@@ -106,3 +108,48 @@ def test_run_many_on_card_is_one_batched_run(cuda):
     assert (cca_step.launches, steady_scan.launches) == (120, 1)
     for a, b in zip(card, run_many(scns, steps=120, device="cpu")):
         _close(a, b)
+
+
+def _maxmin_inputs(F, L, k):
+    """k distinct links per flow (simple paths), capacities U(1e9, 1e10)."""
+    links = np.argsort(RNG.random((F, L)), axis=1)[:, :k].astype(np.int64).ravel()
+    off = np.arange(0, k * (F + 1), k, dtype=np.int64)
+    bw = RNG.uniform(1e9, 1e10, L)
+    return links, off, bw
+
+
+@pytest.mark.parametrize("F,L,k", [(1, 1, 1), (7, 5, 2), (128, 192, 3),
+                                   (1000, 37, 4), (10_000, 128, 3), (300, 2100, 6)])
+def test_maxmin_kernel_bit_equal_to_plain(cuda, F, L, k):
+    links, off, bw = _maxmin_inputs(F, L, k)
+    inc = torch.zeros(F, L, device=cuda)
+    inc.view(-1)[torch.as_tensor(np.repeat(np.arange(F), k) * L + links, device=cuda)] = 1.0
+    cap = torch.tensor(bw, dtype=torch.float32, device=cuda)
+    cap[0] = 0.0                                       # a zero-bandwidth link
+    launches = maxmin.launches
+    got, rounds = maxmin(inc, cap, with_rounds=True)
+    want, want_rounds = maxmin_plain(inc, cap, with_rounds=True)
+    torch.cuda.synchronize()
+    assert maxmin.launches == launches + 1
+    assert torch.equal(got, want)
+    assert int(rounds) == int(want_rounds) <= L
+
+
+def test_maxmin_rates_torch_on_card_tracks_the_exact_solver(cuda):
+    links, off, bw = _maxmin_inputs(10_000, 128, 3)
+    launches = maxmin.launches
+    got = maxmin_rates_torch(links, off, bw)            # the card, the kernel
+    assert maxmin.launches == launches + 1
+    np.testing.assert_allclose(got, maxmin_rates_arrays(links, off, bw), rtol=1e-4)
+    np.testing.assert_array_equal(got, maxmin_rates_torch(links, off, bw, impl="ref"))
+    no_links = maxmin_rates_torch(np.zeros(0, np.int64), np.zeros(3, np.int64), bw)
+    assert maxmin.launches == launches + 1 and (no_links == 1e12).all()
+
+
+def test_maxmin_kernel_refuses_a_non_contiguous_input(cuda):
+    inc = (torch.rand(64, 32, device=cuda) < 0.2).float()
+    cap = torch.rand(32, device=cuda) * 1e10
+    with pytest.raises(ValueError, match="contiguous"):
+        maxmin(inc.T.contiguous().T, cap)
+    with pytest.raises(ValueError, match="contiguous"):
+        maxmin(inc, torch.rand(64, device=cuda)[::2])

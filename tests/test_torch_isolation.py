@@ -35,6 +35,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.net.fluid" in out["modules"]
     assert "repro_torch.api.engines" in out["modules"]
+    assert "repro_torch.api.analytic" in out["modules"]
+    assert "repro_torch.kernels.maxmin.ops" in out["modules"]
     assert out["bad"] == []
 
 
