@@ -14,6 +14,11 @@ Phases, one JSON line each:
             engine's largest solves (plus the max-min solver's ceiling and
             degenerate cases), with the error and the device time of both;
             ``maxmin`` must equal its plain version bit for bit;
+            ``flash_attention`` at the reference test's shapes (float32 and
+            bf16), its convex-hull property, and granite-3-2b's prefill
+            shape, each with the device time of the kernel, of its plain
+            version and of PyTorch's ``scaled_dot_product_attention`` (the
+            library yardstick, which the port never calls);
 4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
             real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
             card, held against the same call on the CPU, and moe@1024 on the
@@ -28,7 +33,17 @@ Phases, one JSON line each:
             that records every solve) must equal it bit for bit, and every
             recorded solve is replayed on the card through
             ``maxmin_rates_torch(..., impl="kernel")``, held to the exact
-            rates at rtol 1e-4, with one ``maxmin`` launch per solve.
+            rates at rtol 1e-4, with one ``maxmin`` launch per solve;
+8. serve    ``repro_torch.launch.serve.generate`` on granite-3-2b at full
+            width and depth in bf16 (seeded weights): batch 4, a 2048-token
+            prompt through ``Model.prefill``, then 32 greedy tokens through
+            ``Model.decode_step``; exactly 40 ``flash_attention`` launches in
+            the prefill and none in decode, every logit finite; one prefill
+            and 4 decode steps under ``torch.profiler``; then the
+            decode-after-prefill continuation at full width and depth in
+            float32 (rtol 2e-2, on weights whose attention is not chaotic:
+            see ``phase_serve``), and the card against the CPU at full width
+            with 2 layers in float32 (prefill logits and cache).
 
 Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -38,6 +53,7 @@ the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -50,11 +66,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 STEPS = 200                  # the fluid engine's default control intervals
 K1_TOL = dict(rtol=1e-5, atol=1e-3)   # tests/test_kernels.py cca_step bar
 K3_TOL = dict(rtol=1e-5, atol=0.0, fluct_rtol=1e-4)   # tests/test_kernels.py steady_scan bars
 E2E_RTOL = 1e-4                       # FCTs, card vs CPU
 K2_RTOL = 1e-4                        # dense float32 solver vs the exact one (tests/test_maxmin.py)
+K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # tests/test_kernels.py flash bars
+          "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW = "granite-3-2b", 4, 2048, 32
+CONTINUATION_TOL = 2e-2               # tests/test_archs.py:125
+CARD_CPU_NORMWISE = 1e-3              # max|card - cpu| <= tol * max|cpu|, float32
 
 
 def emit(phase: str, **fields) -> None:
@@ -95,9 +117,9 @@ def device_ms(torch, fn, n: int = 50) -> tuple[float, float]:
     return start.elapsed_time(end) / n, host
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -220,6 +242,78 @@ def phase_kernels(torch, scenarios, rng) -> dict:
         check(ok, f"steady_scan disagrees with its plain version at {name}: {row}")
         rows[("steady_scan", name)] = row
     return rows
+
+
+def attention_pairs(S: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs that a head's attention computes: what this run's
+    masks leave, not S * S."""
+    i = np.arange(S)
+    hi = i + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_kernels(torch, rows: dict) -> None:
+    """K4 against its plain version on the card; SDPA timed beside it where
+    it computes the same function (no window)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [  # tests/test_kernels.py:136-143 and :157-165, then the serving path's prefill
+        ("f32 1x2/2x128x64 causal", (1, 2, 2, 128, 64), True, None, torch.float32),
+        ("f32 2x4/2x256x64 GQA", (2, 4, 2, 256, 64), True, None, torch.float32),
+        ("f32 1x8/1x128x128 MQA", (1, 8, 1, 128, 128), True, None, torch.float32),
+        ("f32 1x4/4x200x64 ragged", (1, 4, 4, 200, 64), True, None, torch.float32),
+        ("f32 1x4/2x256x64 window 128", (1, 4, 2, 256, 64), True, 128, torch.float32),
+        ("f32 1x2/2x256x64 bidirectional", (1, 2, 2, 256, 64), False, None, torch.float32),
+        ("bf16 1x4/2x128x64 causal", (1, 4, 2, 128, 64), True, None, torch.bfloat16),
+        ("granite prefill bf16 4x32/8x2048x64 causal", (4, 32, 8, 2048, 64), True, None,
+         torch.bfloat16),
+    ]
+    for name, (B, Hq, Hk, S, D), causal, window, dtype in cases:
+        q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, Hk, S, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, Hk, S, D, generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window)
+        out = flash_attention(q, k, v, **kw)
+        ref = attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = K4_TOL[str(dtype).removeprefix("torch.")]
+        abs_err, rel_err, ok = max_errs([out.float()], [ref.float()], **tol)
+        row = dict(kernel="flash_attention", case=name, shape=[B, Hq, Hk, S, D],
+                   causal=causal, window=window, dtype=str(dtype), max_abs_err=abs_err,
+                   max_rel_err=rel_err, tolerance=tol, ok=ok)
+        if name.startswith("f32 1x2/2x128x64"):       # tests/test_kernels.py:168-176
+            hull = (float(out.max()) <= float(v.max()) + 1e-4
+                    and float(out.min()) >= float(v.min()) - 1e-4)
+            row.update(convex_hull=hull)
+            ok = ok and hull
+        ms, host_ms = device_ms(torch, lambda: flash_attention(q, k, v, **kw))
+        plain_ms, _ = device_ms(torch, lambda: attention_plain(q, k, v, **kw), n=5)
+        library_ms = None
+        if window is None:
+            library_ms, _ = device_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
+                                                          enable_gqa=True))
+        esize = q.element_size()
+        nbytes = esize * (2 * B * Hq * S * D + 2 * B * Hk * S * D)
+        flops = 4 * D * B * Hq * attention_pairs(S, causal, window)
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        b_ms, b_by = bound(nbytes, flops, rate)
+        row.update(ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
+                   plain_note="plain PyTorch version (materialises the logits), not a yardstick",
+                   library_ms=library_ms,
+                   library_call="scaled_dot_product_attention(enable_gqa=True)"
+                   if library_ms is not None else "none: SDPA takes no window",
+                   gflop=flops / 1e9, tflop_per_s=flops / ms / 1e9,
+                   bound_ms=b_ms, bound_by=b_by,
+                   bound_rate="bf16 tensor cores" if dtype == torch.bfloat16
+                   else "float32 outside the tensor cores")
+        emit("kernels", **row)
+        check(ok, f"flash_attention disagrees with its plain version at {name}: {row}")
+        rows[("flash_attention", name)] = row
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
 
 
 def compare_results(a, b, what: str) -> dict:
@@ -464,6 +558,164 @@ def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> None:
              replay_wall_s=t_replay, worst_k2_rel_err_vs_exact=worst, tolerance=K2_RTOL)
 
 
+def normwise(a, b) -> dict:
+    """Largest absolute error, and it over the reference's largest entry."""
+    d = float((a.float().cpu() - b.float().cpu()).abs().max())
+    return dict(max_abs_err=d, normwise_err=d / max(float(b.float().abs().max()), 1e-30))
+
+
+def phase_serve(torch, launches: dict) -> None:
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, grow_cache, seeded_prompt
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import leaves
+    cfg = get(SERVE_ARCH)
+    m = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = m.init(0)                                 # the card is the default
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = seeded_prompt(cfg.vocab, SERVE_B, SERVE_PROMPT, 1, "cuda")
+    runs = []
+    for _ in range(2):                                 # the first run is cold
+        flash_attention.launches = 0
+        res = generate(m, params, prompt, SERVE_NEW)
+        n = flash_attention.launches
+        check(res.kernel_launches == {"prefill": cfg.n_layers, "decode": 0} and n == cfg.n_layers,
+              f"serve: flash_attention launches {res.kernel_launches}, expected "
+              f"{cfg.n_layers} in prefill and none in decode")
+        check(res.all_finite, "serve: non-finite logits")
+        check(tuple(res.tokens.shape) == (SERVE_B, SERVE_NEW)
+              and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+              f"serve: bad tokens {tuple(res.tokens.shape)}")
+        runs.append(res)
+        if len(runs) == 1:
+            launches["flash_attention"] += n
+    tokens = SERVE_B * (SERVE_PROMPT + SERVE_NEW)
+    # the least time the card could take: prefill's operations on the bf16
+    # tensor cores (every layer matrix over every prompt token, K4's causal
+    # pairs, the last token's unembedding); decode's bytes per step (every
+    # weight but the embedding table, and the whole cache, read once)
+    matmul_params = sum(math.prod(s.shape) for s in leaves(m.specs["stage0"])
+                        if len(s.shape) >= 3)
+    prefill_flops = (2 * SERVE_B * SERVE_PROMPT * matmul_params
+                     + cfg.n_layers * 4 * cfg.hd * SERVE_B * cfg.n_heads
+                     * attention_pairs(SERVE_PROMPT, True, None)
+                     + 2 * SERVE_B * cfg.d_model * cfg.vocab)
+    cache_bytes = sum(math.prod(shape) * 2 for shape, _ in
+                      leaves(m.cache_specs(SERVE_B, SERVE_PROMPT + SERVE_NEW + 8)))
+    decode_bytes = 2 * (m.n_params - cfg.vocab * cfg.d_model) + cache_bytes
+    emit("serve", arch=cfg.name, n_params=m.n_params, dtype=cfg.param_dtype, batch=SERVE_B,
+         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s,
+         prefill_tflop=prefill_flops / 1e12,
+         prefill_bound_s=prefill_flops / BF16_FLOP_PER_S,
+         decode_gb_per_step=decode_bytes / 1e9,
+         decode_bound_ms_per_token=decode_bytes / HBM_BYTES_PER_S * 1e3,
+         prefill_s=[r.prefill_s for r in runs],
+         prefill_tok_per_s=[SERVE_B * SERVE_PROMPT / r.prefill_s for r in runs],
+         decode_ms_per_token=[r.decode_s / SERVE_NEW * 1e3 for r in runs],
+         decode_tok_per_s=[SERVE_B * SERVE_NEW / r.decode_s for r in runs],
+         tok_per_s=[tokens / (r.prefill_s + r.decode_s) for r in runs],
+         flash_attention_launches=runs[0].kernel_launches,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         tokens_identical_across_runs=bool(torch.equal(runs[0].tokens, runs[1].tokens)),
+         sampled=runs[0].tokens[0][:16].tolist())
+
+    # where the time goes: one prefill and 4 decode steps, traced
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+        return result, dict(
+            traced_wall_s=wall, device_busy_s=busy if busy > 0 else "not measured",
+            busy_share=busy / wall if busy > 0 else "not measured",
+            kernels=[dict(name=e.key[:70], count=e.count,
+                          device_s=e.self_device_time_total / 1e6) for e in top])
+    out = {}
+    (_, pcache), out["prefill"] = traced(lambda: m.prefill(params, {"tokens": prompt}))
+    cache = grow_cache(m, pcache, SERVE_B, SERVE_PROMPT + SERVE_NEW + 8, "cuda")
+    del pcache
+    tok = prompt[:, -1:]
+    _, out["decode_4_steps"] = traced(lambda: [m.decode_step(params, cache, tok, SERVE_PROMPT + i)
+                                               for i in range(4)])
+    emit("serve_profile", **out)
+    del params, cache, runs, res
+    torch.cuda.empty_cache()
+
+    # decode after prefill == prefill over one more token, full width and
+    # depth, float32 with TF32 off (tests/test_archs.py:105-128).  With the
+    # reference's initialiser the model is chaotic: its fan-in for wq and wk
+    # is the heads axis, so logits have a std of about 64 and float32
+    # rounding grows from layer to layer (the JAX package itself misses this
+    # bar by 8 % at 8 layers).  So the bar holds the same weights with wq
+    # and wk scaled to a fan-in of d_model (logits of std about 1), and the
+    # reference-init run is measured and held only to finite logits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    m32 = build_model(cfg32)
+    p32 = m32.init(2)
+    toks = seeded_prompt(cfg.vocab, 1, 257, 3, "cuda")
+    cont = {}
+    for init in ("reference", "fan-in d_model"):
+        if init != "reference":
+            mixer = p32["stage0"]["b0"]["mixer"]
+            mixer["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
+            mixer["wk"] *= (cfg.n_kv / cfg.d_model) ** 0.5
+        ref_logits, _ = m32.prefill(p32, {"tokens": toks})
+        _, cache = m32.prefill(p32, {"tokens": toks[:, :256]})
+        cache = grow_cache(m32, cache, 1, 256 + 8, "cuda")
+        logits, _ = m32.decode_step(p32, cache, toks[:, 256:], 256)
+        _, _, ok = max_errs([logits], [ref_logits], CONTINUATION_TOL, CONTINUATION_TOL)
+        finite = bool(torch.isfinite(logits).all() and torch.isfinite(ref_logits).all())
+        cont[init] = dict(**normwise(logits, ref_logits), finite=finite,
+                          within_tolerance=ok, tolerance=CONTINUATION_TOL,
+                          gated="finite only" if init == "reference" else "tolerance")
+        check(finite and (ok or init == "reference"),
+              f"serve: decode after prefill off the longer prefill: {cont}")
+    del p32, cache
+    torch.cuda.empty_cache()
+
+    # the card against the CPU (plain versions), full width, 2 layers, float32
+    m2 = build_model(dataclasses.replace(cfg32, n_layers=2))
+    p2 = m2.init(4)
+    p2_cpu = _tree_to(p2, "cpu")
+    toks = seeded_prompt(cfg.vocab, 1, 256, 5, "cuda")
+    t0 = time.perf_counter()
+    logits, cache = m2.prefill(p2, {"tokens": toks})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, cpu_cache = m2.prefill(p2_cpu, {"tokens": toks.cpu()})
+    cpu_s = time.perf_counter() - t0
+    errs = {"logits": normwise(logits, cpu_logits),
+            **{n: normwise(cache["stage0"]["b0"][n], cpu_cache["stage0"]["b0"][n])
+               for n in ("k", "v")}}
+    ok = all(e["normwise_err"] <= CARD_CPU_NORMWISE for e in errs.values())
+    emit("serve_checks", continuation_f32=cont,
+         card_vs_cpu_2_layers_f32=dict(errs=errs, tolerance_normwise=CARD_CPU_NORMWISE, ok=ok,
+                                       card_prefill_s=card_s, cpu_prefill_s=cpu_s))
+    check(ok, f"serve: card against CPU off by {errs}")
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -481,7 +733,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    libs = load("cca_step", "steady_scan", "maxmin")
+    libs = load("cca_step", "steady_scan", "maxmin", "flash_attention")
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln for ln in lib.log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -494,16 +746,19 @@ def main() -> int:
     rows = phase_kernels(torch, scenarios, rng)
     recorded = {name: record_analytic(scn) for name, scn in scenarios.items()}
     maxmin_kernels(torch, recorded, rows)
+    flash_kernels(torch, rows)
 
-    launches = {"cca_step": 0, "steady_scan": 0, "maxmin": 0}
+    launches = {"cca_step": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0}
     phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
     phase_analytic(torch, scenarios, recorded, launches)
+    phase_serve(torch, launches)
 
     k1 = rows[("cca_step", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
     k2 = rows[("maxmin", "moe@1024 largest solve")]
+    k4 = rows[("flash_attention", "granite prefill bf16 4x32/8x2048x64 causal")]
     kernels = [
         dict(name="cca_step", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
              replaces="src/repro/kernels/cca_step/kernel.py:27",
@@ -520,6 +775,12 @@ def main() -> int:
              launches=launches["maxmin"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:28",
+             launches=launches["flash_attention"], max_abs_err=k4["max_abs_err"],
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=k4["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

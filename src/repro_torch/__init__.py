@@ -2,10 +2,17 @@
 
 The JAX package ``repro`` is the reference; this package stands beside
 it, imports nothing of it, and holds the same API to the reference's
-numbers.  What runs so far is the ``fluid`` backend end to end:
-``repro_torch.api.run(scenario, backend="fluid")`` builds the phases,
-solves each phase's fluid rates through the hand-written ``cca_step`` and
-``steady_scan`` kernels (``repro_torch.kernels``), and returns a
-``RunResult``.  Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+numbers.  What runs so far:
+
+- the ``fluid`` backend end to end: ``repro_torch.api.run(scenario,
+  backend="fluid")`` solves each phase's fluid rates through the
+  hand-written ``cca_step`` and ``steady_scan`` kernels;
+- the ``analytic`` backend (host-only, exact) and the dense max-min solver
+  ``maxmin_rates_torch`` through the ``maxmin`` kernel;
+- the architecture zoo's serving path for the dense-attention models
+  (``repro_torch.models``, ``python -m repro_torch.launch.serve``), with
+  full-sequence attention through the ``flash_attention`` kernel.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 """

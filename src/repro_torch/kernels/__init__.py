@@ -6,6 +6,9 @@ reference's Pallas set that the port has reached:
   maxmin       dense max-min water-filling (``maxmin_rates_torch``); the
                package also holds the exact host solver the analytic
                engine runs
+  flash_attention
+               causal / sliding-window attention with grouped KV heads
+               (the architecture zoo's full-sequence attention)
 
 Each package holds the wrapper, with its launch count, and the plain
 PyTorch version of the same function; the CUDA sources live in

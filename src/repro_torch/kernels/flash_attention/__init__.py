@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention.ops import attention_plain, flash_attention
+
+__all__ = ["attention_plain", "flash_attention"]

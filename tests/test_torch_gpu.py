@@ -1,10 +1,12 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions, and the fluid engine through them against its CPU run.
+PyTorch versions; the fluid engine and the serving path through them
+against their CPU runs.
 
 Every test here takes the ``cuda`` fixture and skips where there is no
 card.  The file imports no JAX (the machine with the card has none); the
-JAX parity of the plain versions is ``tests/test_torch_kernels.py`` and
-``tests/test_torch_fluid.py``.  On the card:
+JAX parity of the plain versions is ``tests/test_torch_kernels.py``,
+``tests/test_torch_fluid.py``, ``tests/test_torch_flash.py`` and
+``tests/test_torch_models.py``.  On the card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -13,10 +15,14 @@ import pytest
 import torch
 
 from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, run_many, training_scenario
+from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_arrays,
                                         maxmin_rates_torch)
 from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
+from repro_torch.launch import serve
+from repro_torch.models.api import build_model
 
 pytestmark = pytest.mark.gpu
 RNG = np.random.default_rng(5)
@@ -153,3 +159,91 @@ def test_maxmin_kernel_refuses_a_non_contiguous_input(cuda):
         maxmin(inc.T.contiguous().T, cap)
     with pytest.raises(ValueError, match="contiguous"):
         maxmin(inc, torch.rand(64, device=cuda)[::2])
+
+
+# tests/test_kernels.py:136-143, plus head dim 32 (the reduced configs) and
+# a window without the causal mask
+FLASH_CASES = [
+    (1, 2, 2, 128, 64, True, None),
+    (2, 4, 2, 256, 64, True, None),     # GQA 2:1
+    (1, 8, 1, 128, 128, True, None),    # MQA
+    (1, 4, 4, 200, 64, True, None),     # ragged
+    (1, 4, 2, 256, 64, True, 128),      # sliding window
+    (1, 2, 2, 256, 64, False, None),    # bidirectional (encoder)
+    (2, 4, 2, 77, 32, True, 16),
+    (1, 2, 1, 300, 32, False, 40),
+]
+
+
+def _flash_inputs(B, Hq, Hk, S, D, device, dtype=torch.float32):
+    return (torch.tensor(RNG.normal(size=(B, Hq, S, D)), dtype=dtype, device=device),
+            torch.tensor(RNG.normal(size=(B, Hk, S, D)), dtype=dtype, device=device),
+            torch.tensor(RNG.normal(size=(B, Hk, S, D)), dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("B,Hq,Hk,S,D,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hk, S, D, causal, window):
+    q, k, v = _flash_inputs(B, Hq, Hk, S, D, cuda)
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    torch.testing.assert_close(out, attention_plain(q, k, v, causal=causal, window=window),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2, 128, 64), (4, 32, 8, 2048, 64)])
+def test_flash_attention_kernel_bf16(cuda, shape):
+    """The reference's bf16 case and granite-3-2b's prefill shape."""
+    q, k, v = _flash_inputs(*shape, cuda, torch.bfloat16)
+    out = flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_kernel_rows_are_convex_combinations(cuda):
+    q, k, v = _flash_inputs(1, 2, 2, 128, 64, cuda)
+    out = flash_attention(q, k, v)
+    assert float(out.max()) <= float(v.max()) + 1e-4
+    assert float(out.min()) >= float(v.min()) - 1e-4
+
+
+def test_flash_attention_kernel_reads_strided_views_in_place(cuda):
+    """``[B, S, H, D]`` tensors transposed to ``[B, H, S, D]``, as the layers
+    hand them over, and a misaligned view, which the wrapper copies."""
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _flash_inputs(2, 8, 2, 96, 64, cuda, torch.bfloat16))
+    ref = attention_plain(q, k, v, window=33)
+    torch.testing.assert_close(flash_attention(q, k, v, window=33), ref, rtol=2e-2, atol=2e-2)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_odd = flat[1:].view(q.shape).copy_(q)                # 2-byte offset
+    torch.testing.assert_close(flash_attention(q_odd, k, v, window=33), ref,
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_reduced_granite_prefill_on_card_matches_cpu(cuda):
+    """Weights drawn on the CPU and copied over; float32 (TF32 off).  Logits
+    and cache norm-wise at 1e-4 (``tests/test_torch_models.py`` says why
+    norm-wise); one kernel launch per layer in prefill, none in decode."""
+    m = build_model(ARCHS["granite-3-2b"].reduced())
+    cpu_params = m.init(3, device="cpu")
+    params = _to(cpu_params, cuda)
+    prompt = torch.tensor(RNG.integers(0, m.cfg.vocab, (2, 40)))
+    launches = flash_attention.launches
+    logits, cache = m.prefill(params, {"tokens": prompt.to(cuda)})
+    assert flash_attention.launches == launches + m.cfg.n_layers
+    want, want_cache = m.prefill(cpu_params, {"tokens": prompt})
+    for a, b in [(logits, want), *((cache["stage0"]["b0"][n], want_cache["stage0"]["b0"][n])
+                                   for n in "kv")]:
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err
+    res = serve.generate(m, params, prompt.to(cuda), 5)
+    assert res.kernel_launches == {"prefill": m.cfg.n_layers, "decode": 0}
+    assert res.all_finite
+    cpu_res = serve.generate(m, cpu_params, prompt, 5)
+    assert torch.equal(res.tokens.cpu(), cpu_res.tokens)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

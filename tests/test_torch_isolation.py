@@ -37,6 +37,9 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "repro_torch.api.engines" in out["modules"]
     assert "repro_torch.api.analytic" in out["modules"]
     assert "repro_torch.kernels.maxmin.ops" in out["modules"]
+    assert "repro_torch.kernels.flash_attention.ops" in out["modules"]
+    assert "repro_torch.models.lm" in out["modules"]
+    assert "repro_torch.launch.serve" in out["modules"]
     assert out["bad"] == []
 
 
