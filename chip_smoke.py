@@ -55,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -131,6 +132,34 @@ def max_errs(outs, refs, rtol: float, atol: float) -> tuple[float, float, bool]:
         rel_err = max(rel_err, float((d / r.abs().clamp_min(1e-30)).max()))
         ok = ok and bool((d <= atol + rtol * r.abs()).all())
     return abs_err, rel_err, ok
+
+
+def tensor_core_report(lib) -> dict:
+    """Registers and spills of K4's bf16 kernel from ptxas's report (it must
+    not spill), and, where the toolkit has cuobjdump, how many tensor-core
+    instructions (HGMMA: wgmma; HMMA: mma.sync) its SASS holds."""
+    from repro_torch.kernels.build import find_nvcc
+    kernels, name = {}, None
+    for ln in lib.log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "flash_attention_tc_kernel" in name:
+            d = "D" + name.split("flash_attention_tc_kernelILi")[1].split("E")[0]
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            used = re.search(r"Used (\d+) registers", ln)
+            if spills:
+                kernels.setdefault(d, {})["spill_bytes"] = int(spills[1]) + int(spills[2])
+            elif used:
+                kernels.setdefault(d, {})["registers"] = int(used[1])
+    check(kernels and all(k.get("spill_bytes") == 0 for k in kernels.values()),
+          f"flash_attention bf16 kernel: spills or no ptxas report: {kernels}")
+    sass = {}
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        text = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        sass = {op: text.count(op) for op in ("HGMMA", "HMMA")}
+    return dict(ptxas=kernels, sass_tensor_core_ops=sass or "cuobjdump not found")
 
 
 # ---------------------------------------------------------------------- #
@@ -260,7 +289,7 @@ def flash_kernels(torch, rows: dict) -> None:
 
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [  # tests/test_kernels.py:136-143 and :157-165, then the serving path's prefill
+    cases = [  # tests/test_kernels.py:136-143 and :157-165, the serving path's prefill, more bf16
         ("f32 1x2/2x128x64 causal", (1, 2, 2, 128, 64), True, None, torch.float32),
         ("f32 2x4/2x256x64 GQA", (2, 4, 2, 256, 64), True, None, torch.float32),
         ("f32 1x8/1x128x128 MQA", (1, 8, 1, 128, 128), True, None, torch.float32),
@@ -270,6 +299,12 @@ def flash_kernels(torch, rows: dict) -> None:
         ("bf16 1x4/2x128x64 causal", (1, 4, 2, 128, 64), True, None, torch.bfloat16),
         ("granite prefill bf16 4x32/8x2048x64 causal", (4, 32, 8, 2048, 64), True, None,
          torch.bfloat16),
+        # mistral-nemo-12b's heads (src/repro_torch/configs/mistral_nemo_12b.py) at
+        # granite's prefill batch and prompt: the tensor-core kernel at D = 128
+        ("mistral-nemo prefill bf16 4x32/8x2048x128 causal", (4, 32, 8, 2048, 128), True,
+         None, torch.bfloat16),
+        ("bf16 1x4/2x256x64 window 128", (1, 4, 2, 256, 64), True, 128, torch.bfloat16),
+        ("bf16 1x4/4x200x64 ragged", (1, 4, 4, 200, 64), True, None, torch.bfloat16),
     ]
     for name, (B, Hq, Hk, S, D), causal, window, dtype in cases:
         q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
@@ -737,7 +772,8 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln for ln in lib.log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling" in ln]
-                for n, lib in libs.items()})
+                for n, lib in libs.items()},
+         flash_bf16=tensor_core_report(libs["flash_attention"]))
 
     rng = np.random.default_rng(0)
     scenarios = {"gpt@128": training_scenario(n_gpus=128, scale=1.0),

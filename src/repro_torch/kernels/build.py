@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class Library:
     """One loaded kernel library and how it came to be."""
     cdll: ctypes.CDLL
+    path: pathlib.Path    # the shared library, for cuobjdump
     log: str              # nvcc's output, with -Xptxas -v's registers and spills
     build_seconds: float  # 0.0 when an earlier build of the same source was loaded
 
@@ -88,7 +89,7 @@ def load(*names: str) -> dict[str, Library]:
         _, out = _target(name)
         log_path = out.with_suffix(".log")
         _loaded[name] = Library(
-            cdll=ctypes.CDLL(str(out)),
+            cdll=ctypes.CDLL(str(out)), path=out,
             log=log_path.read_text() if log_path.exists() else "",
             build_seconds=seconds if name in procs else 0.0)
     return {n: _loaded[n] for n in names}

@@ -1,9 +1,11 @@
 """Causal / sliding-window attention with grouped KV heads: wrapper, launch
 count and plain version.
 
-The CUDA kernel (``repro_torch/csrc/flash_attention.cu``) replaces the
-Pallas kernel ``_flash_kernel`` of ``repro/kernels/flash_attention/kernel.py``;
-its source note says what bounds it on Hopper and how it is laid out.  The
+The CUDA kernels (``repro_torch/csrc/flash_attention.cu``: bf16 on the
+tensor cores with ``wgmma`` and a TMA ring, float32 one thread per query
+row) replace the Pallas kernel ``_flash_kernel`` of
+``repro/kernels/flash_attention/kernel.py``; the source note says what
+bounds them on Hopper and how they are laid out.  The
 plain version below is the same function in PyTorch, line for line with the
 reference's oracle ``repro.kernels.flash_attention.ref.attention_ref``.
 
@@ -62,11 +64,13 @@ def _launcher():
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernel can read it in place (unit stride along
-    D, other strides in whole 4-element groups, 16-byte aligned), else a
-    contiguous copy."""
-    if (x.stride(-1) == 1 and all(s % 4 == 0 for s in x.stride()[:3])
-            and x.data_ptr() % 16 == 0):
+    """``x`` itself when the kernels can read it in place, else a contiguous
+    copy.  In place means unit stride along D, a 16-byte aligned base and
+    positive B/H/S strides in whole 16 bytes (multiples of 8 elements in
+    bf16, of 4 in float32): what the bf16 kernel's TMA tensor maps demand,
+    and the float32 kernel's 16-byte loads."""
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s > 0 and s * x.element_size() % 16 == 0 for s in x.stride()[:3])):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -103,14 +107,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window, scale=scale)
 
-    if B * Hq > 65535:
-        raise ValueError(f"flash_attention: B*Hq = {B * Hq} exceeds the kernel's grid")
+    bf16 = q.dtype == torch.bfloat16
+    if (-(-S // 128) if bf16 else B * Hq) > 65535:
+        raise ValueError(f"flash_attention: B*Hq = {B * Hq}, S = {S} exceed the kernel's grid")
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=dev)
     with torch.cuda.device(dev):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hk, S, D, int(q.dtype == torch.bfloat16),
+            B, Hq, Hk, S, D, int(bf16),
             *(s for x in (q, k, v, out) for s in x.stride()[:3]),
             scale, int(causal), window or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -120,3 +120,62 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(change, error):
     k = torch.zeros(1, Hk, change.get("k_len", 16), D, dtype=dtype)
     with pytest.raises(error):
         flash_attention(q, k, k.clone(), window=change.get("window"))
+
+
+def test_kernel_operand_passes_aligned_views_and_copies_the_rest():
+    """The bf16 kernel's TMA maps need a 16-byte aligned base and B/H/S
+    strides in whole 16 bytes (multiples of 8 in bf16): a ``[B, S, H, D]``
+    tensor transposed to ``[B, H, S, D]`` goes through as it is; a view at
+    a 2-byte offset, or with a sequence stride of 68 elements, is copied."""
+    from repro_torch.kernels.flash_attention.ops import _kernel_operand
+    x = torch.zeros(2, 48, 4, 32, dtype=torch.bfloat16).transpose(1, 2)
+    assert _kernel_operand(x) is x
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    odd = flat[1:].view(2, 48, 4, 32).transpose(1, 2)          # 2-byte offset
+    padded = torch.zeros(2, 48, 2 * 32 + 4, dtype=torch.bfloat16)
+    strided = padded[..., :64].unflatten(-1, (2, 32)).transpose(1, 2)   # S stride 68
+    assert strided.stride()[:3] == (48 * 68, 32, 68)
+    for y in (odd, strided):
+        got = _kernel_operand(y)
+        assert got is not y and got.is_contiguous() and torch.equal(got, y)
+        assert got.data_ptr() % 16 == 0
+    # 68 float32 elements are 272 bytes, whole 16 bytes: read in place
+    strided32 = torch.zeros(2, 48, 68)[..., :64].unflatten(-1, (2, 32)).transpose(1, 2)
+    assert _kernel_operand(strided32) is strided32
+
+
+def _attention_bf16_p(q, k, v, *, causal, window):
+    """The bf16 kernel's arithmetic on the CPU: float32 logits and p, l the
+    sum of the float32 p, p rounded to bf16 before p . v (``_sdpa``'s
+    rounding), output acc / max(l, 1e-30) in bf16."""
+    S, D = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / D ** 0.5
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    mask = (j <= i) if causal else torch.ones(S, S, dtype=torch.bool)
+    if window is not None:
+        mask &= j > i - window
+    logits = torch.where(mask, logits, -torch.inf)
+    p = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vv)
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 128])
+def test_p_rounded_to_bf16_stays_inside_the_bf16_bar(window):
+    """Rounding p to bf16 before p . v (the tensor-core kernel's numerics)
+    at a granite-like head dim over 300 positions, causal and windowed, is
+    within the bf16 bar of the reference's oracle and of the plain version."""
+    q, k, v = _qkv(1, 8, 2, 300, 64)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _attention_bf16_p(tq, tk, tv, causal=True, window=window).float()
+    ref = attention_ref(*(jnp.asarray(x.float().numpy()) for x in (tq, tk, tv)),
+                        causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-2, atol=2e-2)
+    plain = attention_plain(tq, tk, tv, causal=True, window=window).float()
+    torch.testing.assert_close(got, plain, rtol=2e-2, atol=2e-2)
+    assert not torch.equal(got, plain)    # the rounding is there, and small

@@ -192,13 +192,23 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hk, S, D, causal, win
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("shape", [(1, 4, 2, 128, 64), (4, 32, 8, 2048, 64)])
-def test_flash_attention_kernel_bf16(cuda, shape):
-    """The reference's bf16 case and granite-3-2b's prefill shape."""
-    q, k, v = _flash_inputs(*shape, cuda, torch.bfloat16)
-    out = flash_attention(q, k, v)
+@pytest.mark.parametrize("B,Hq,Hk,S,D,causal,window", [
+    *FLASH_CASES,
+    (1, 4, 2, 128, 64, True, None),     # tests/test_kernels.py:157-165
+    (4, 32, 8, 2048, 64, True, None),   # granite-3-2b's prefill
+    (1, 8, 2, 640, 128, True, None),    # a 128-head-dim GQA model's heads
+])
+def test_flash_attention_kernel_bf16(cuda, B, Hq, Hk, S, D, causal, window):
+    """The tensor-core kernel at every float32 case's shape and mask, the
+    reference's bf16 case and granite-3-2b's prefill shape, at the bf16 bar."""
+    q, k, v = _flash_inputs(B, Hq, Hk, S, D, cuda, torch.bfloat16)
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
     assert out.dtype == torch.bfloat16
-    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
+    torch.testing.assert_close(out.float(),
+                               attention_plain(q, k, v, causal=causal, window=window).float(),
                                rtol=2e-2, atol=2e-2)
 
 
