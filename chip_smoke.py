@@ -13,6 +13,11 @@ Phases, one JSON line each:
             the shapes of the fluid engine's real phases and of the analytic
             engine's largest solves (plus the max-min solver's ceiling and
             degenerate cases), with the error and the device time of both;
+            ``fluid_scan`` (K1) runs a phase's 200 control steps in one
+            launch from the fluid engine's initial state, held to the plain
+            loop at the histories' bar, with its time per scan and per step
+            and the bound's parts; ``cca_step`` is the same kernel at one
+            step from a random mid-run state;
             ``maxmin`` must equal its plain version bit for bit;
             ``flash_attention`` at the reference test's shapes (float32 and
             bf16), its convex-hull property, and granite-3-2b's prefill
@@ -22,9 +27,10 @@ Phases, one JSON line each:
 4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
             real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
             card, held against the same call on the CPU, and moe@1024 on the
-            card alone; each run's kernel launch counts must equal phases x
-            steps (cca_step) and phases (steady_scan);
-5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU;
+            card alone; each run's kernel launch counts must equal phases
+            (fluid_scan, one scan per phase) and phases (steady_scan);
+5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU:
+            one fluid_scan and one steady_scan launch;
 6. profile  gpt@128 again, untraced and then under ``torch.profiler``: the
             device's busy share of the wall time and its time by kernel;
 7. analytic ``repro_torch.api.run(..., backend="analytic")`` (host-only, exact)
@@ -70,6 +76,10 @@ FP32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 STEPS = 200                  # the fluid engine's default control intervals
 K1_TOL = dict(rtol=1e-5, atol=1e-3)   # tests/test_kernels.py cca_step bar
+# a scan's histories and final state, tests/test_torch_fluid.py's bar: rtol
+# 1e-4, and one byte of atol on byte counts (queues, delivered)
+SCAN_RTOL, SCAN_ATOL = 1e-4, {"queues": 1.0, "queue_hist": 1.0, "delivered": 1.0}
+SCAN_KEYS = ("M", "line", "rtt0", "size", "bw", "W", "alpha", "delivered", "q")
 K3_TOL = dict(rtol=1e-5, atol=0.0, fluct_rtol=1e-4)   # tests/test_kernels.py steady_scan bars
 E2E_RTOL = 1e-4                       # FCTs, card vs CPU
 K2_RTOL = 1e-4                        # dense float32 solver vs the exact one (tests/test_maxmin.py)
@@ -134,23 +144,32 @@ def max_errs(outs, refs, rtol: float, atol: float) -> tuple[float, float, bool]:
     return abs_err, rel_err, ok
 
 
+def ptxas_report(lib, fragment: str) -> dict:
+    """ptxas's registers, static shared memory and spill bytes of every
+    entry function whose mangled name holds ``fragment``, by that name."""
+    kernels, name = {}, None
+    for ln in lib.log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and fragment in name:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            used = re.search(r"Used (\d+) registers", ln)
+            if spills:
+                kernels.setdefault(name, {})["spill_bytes"] = int(spills[1]) + int(spills[2])
+            elif used:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                kernels.setdefault(name, {}).update(registers=int(used[1]),
+                                                    static_smem_bytes=int(smem[1]) if smem else 0)
+    return kernels
+
+
 def tensor_core_report(lib) -> dict:
     """Registers and spills of K4's bf16 kernel from ptxas's report (it must
     not spill), and, where the toolkit has cuobjdump, how many tensor-core
     instructions (HGMMA: wgmma; HMMA: mma.sync) its SASS holds."""
     from repro_torch.kernels.build import find_nvcc
-    kernels, name = {}, None
-    for ln in lib.log.splitlines():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-        elif name and "flash_attention_tc_kernel" in name:
-            d = "D" + name.split("flash_attention_tc_kernelILi")[1].split("E")[0]
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-            used = re.search(r"Used (\d+) registers", ln)
-            if spills:
-                kernels.setdefault(d, {})["spill_bytes"] = int(spills[1]) + int(spills[2])
-            elif used:
-                kernels.setdefault(d, {})["registers"] = int(used[1])
+    kernels = {"D" + name.split("flash_attention_tc_kernelILi")[1].split("E")[0]: v
+               for name, v in ptxas_report(lib, "flash_attention_tc_kernelILi").items()}
     check(kernels and all(k.get("spill_bytes") == 0 for k in kernels.values()),
           f"flash_attention bf16 kernel: spills or no ptxas report: {kernels}")
     sass = {}
@@ -201,8 +220,130 @@ def k1_inputs(torch, fs, rng, batch: int | None):
         bw=t(np.broadcast_to(fs.link_bw, (*shape, L))))
 
 
-def phase_kernels(torch, scenarios, rng) -> dict:
+def scan_flops(B: int, F: int, L: int, nnz: int, steps: int) -> int:
+    """Operations of ``steps`` fluid steps on these inputs: per set bit of
+    the incidence one add for the queue delay, one max for the mark and one
+    add for the arrivals; about 25 per flow (the DCTCP update) and 10 per
+    link (the queue update, q / bw and the mark)."""
+    return steps * (3 * nnz + B * (25 * F + 10 * L))
+
+
+def host_ms(torch, fn, n: int = 20) -> float:
+    """Host clock per call of ``fn`` (a wrapper, its checks and its sync
+    included), each call waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def batched(a: dict) -> dict:
+    """Inputs with the leading batch dimension the kernel's launch takes."""
+    return {k: v if v.dim() == (3 if k == "M" else 2) else v.unsqueeze(0) for k, v in a.items()}
+
+
+def cca_step_rows(torch, cases, rng, rows: dict) -> None:
+    """K1 at one step (``cca_step``) from a random mid-run state."""
     from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+    from repro_torch.kernels.cca_step.ops import fluid_scan_kernel
+    for name, fs, batch in cases:
+        a = k1_inputs(torch, fs, rng, batch)
+        consts = dict(dt=1e-5, g=1 / 16, ecn_k=64_000.0, mss=1000.0)
+        out = cca_step(**a, **consts)
+        ref = cca_step_plain(**a, **consts)
+        torch.cuda.synchronize()
+        abs_err, rel_err, ok = max_errs(out, ref, **K1_TOL)
+        t = batched({k: v for k, v in a.items() if k != "R"})
+        ms, _ = device_ms(torch, lambda t=t: fluid_scan_kernel(t, steps=1, history=False,
+                                                               **consts))
+        call_ms = host_ms(torch, lambda a=a: cca_step(**a, **consts))
+        plain_ms, _ = device_ms(torch, lambda a=a: cca_step_plain(**a, **consts))
+        B = batch or 1
+        F, L = fs.incidence.shape
+        nbytes = 4 * B * (6 * F + F * L + 2 * L + 4 * F + L)
+        flops = scan_flops(B, F, L, B * int(fs.incidence.sum()), 1)
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(kernel="cca_step", case=name, B=B, F=F, L=L, steps=1,
+                   max_abs_err=abs_err, max_rel_err=rel_err, tolerance=K1_TOL,
+                   ok=ok, ms=ms, host_ms_per_call=call_ms, plain_ms=plain_ms,
+                   note="the fluid_scan kernel at one step; ms times its launch alone, "
+                        "host_ms_per_call the wrapper with its 0/1 check (a sync)",
+                   plain_note="plain PyTorch version, not a yardstick",
+                   bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **row)
+        check(ok, f"cca_step disagrees with its plain version at {name}: {row}")
+        rows[("cca_step", name)] = row
+
+
+def scan_inputs(torch, fs, batch: int | None) -> tuple[dict, float]:
+    """The fluid engine's call for this phase (``fluid_converged_rates``):
+    its initial state, unbounded flows, dt the median base RTT."""
+    F, L = fs.incidence.shape
+    shape = (batch,) if batch else ()
+
+    def t(x, *n):
+        return torch.from_numpy(np.array(np.broadcast_to(x, (*shape, *n)), np.float32,
+                                         order="C")).cuda()
+    line, rtt0, bw = t(fs.line_rate, F), t(fs.base_rtt, F), t(fs.link_bw, L)
+    a = dict(M=t(fs.incidence, F, L),
+             line=line, rtt0=rtt0, size=torch.full_like(line, float("inf")), bw=bw,
+             W=line * rtt0, alpha=torch.ones_like(line), delivered=torch.zeros_like(line),
+             q=torch.zeros_like(bw))
+    return a, float(np.median(fs.base_rtt))
+
+
+def fluid_scan_rows(torch, cases, rows: dict, ptxas: dict) -> None:
+    """K1 as the fluid engine runs it: one scan of STEPS control steps."""
+    from repro_torch.kernels.cca_step import fluid_scan, fluid_scan_plain
+    from repro_torch.kernels.cca_step.ops import fluid_scan_kernel, workspace_bytes
+    for name, fs, batch in cases:
+        a, dt = scan_inputs(torch, fs, batch)
+        consts = dict(dt=dt, steps=STEPS, g=1 / 16, ecn_k=64_000.0, mss=1000.0, history=True)
+        args = [a[k] for k in SCAN_KEYS]
+        out = fluid_scan(*args, **consts)
+        ref = fluid_scan_plain(*args, **consts)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for k, r in ref.items():
+            abs_err, rel_err, k_ok = max_errs([out[k]], [r], SCAN_RTOL, SCAN_ATOL.get(k, 0.0))
+            errs[k] = dict(max_abs_err=abs_err, max_rel_err=rel_err)
+            ok = ok and k_ok
+        bit_equal = all(torch.equal(out[k], ref[k]) for k in ref)
+        t = batched(a)
+        ms, _ = device_ms(torch, lambda t=t: fluid_scan_kernel(t, **consts), n=20)
+        call_ms = host_ms(torch, lambda: fluid_scan(*args, **consts), n=5)
+        plain_ms, _ = device_ms(torch, lambda: fluid_scan_plain(*args, **consts), n=3)
+        B = batch or 1
+        F, L = fs.incidence.shape
+        nnz = B * int(fs.incidence.sum())
+        # inputs once (M dense float32, 6 flow and 2 link vectors), outputs once
+        # (4 flow and 2 link vectors, both histories)
+        nbytes = 4 * B * (F * L + 6 * F + 2 * L + 4 * F + 2 * L + STEPS * (F + L))
+        flops = scan_flops(B, F, L, nnz, STEPS)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        b_ms, b_by = bound(nbytes, flops)
+        ws = workspace_bytes(F, L)
+        row = dict(kernel="fluid_scan", case=name, B=B, F=F, L=L, steps=STEPS, dt=dt,
+                   set_bits=nnz, errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   bit_equal_to_plain=bit_equal,
+                   tolerance=dict(rtol=SCAN_RTOL, atol=SCAN_ATOL), ok=ok,
+                   ms=ms, ns_per_step=ms / STEPS * 1e6, host_ms_per_call=call_ms,
+                   plain_ms=plain_ms, plain_note="plain PyTorch loop over steps, not a yardstick",
+                   bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_bytes_ms=bytes_ms,
+                   bound_flops=flops, bound_ops_ms=ops_ms,
+                   latency_floor=f"{STEPS} steps x 2 block barriers",
+                   workspace_bytes_per_block=ws,
+                   workspace="shared memory" if ws <= 232_448 else "global scratch",
+                   ptxas=ptxas)
+        emit("kernels", **row)
+        check(ok, f"fluid_scan disagrees with its plain version at {name}: {row}")
+        rows[("fluid_scan", name)] = row
+
+
+def phase_kernels(torch, scenarios, rng, ptxas: dict) -> dict:
     from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -210,29 +351,8 @@ def phase_kernels(torch, scenarios, rng) -> dict:
     phases = {name: largest_phase(scn) for name, scn in scenarios.items()}
     cases = [(name, fs, None) for name, fs in phases.items()]
     cases.append(("moe@128 x16", phases["moe@128"], 16))
-    for name, fs, batch in cases:
-        a = k1_inputs(torch, fs, rng, batch)
-        consts = dict(dt=1e-5)
-        out = cca_step(**a, **consts)
-        ref = cca_step_plain(**a, **consts)
-        torch.cuda.synchronize()
-        abs_err, rel_err, ok = max_errs(out, ref, **K1_TOL)
-        ms, host_ms = device_ms(torch, lambda a=a: cca_step(**a, **consts))
-        plain_ms, _ = device_ms(torch, lambda a=a: cca_step_plain(**a, **consts))
-        B = batch or 1
-        F, L = fs.incidence.shape
-        nbytes = 4 * B * (6 * F + F * L + 2 * L + 4 * F + L)
-        flops = B * (11 * F * L + 25 * F)
-        b_ms, b_by = bound(nbytes, flops)
-        row = dict(kernel="cca_step", case=name, B=B, F=F, L=L,
-                   max_abs_err=abs_err, max_rel_err=rel_err, tolerance=K1_TOL,
-                   ok=ok, ms=ms,
-                   host_ms_per_call=host_ms, plain_ms=plain_ms,
-                   plain_note="plain PyTorch version, not a yardstick",
-                   bound_ms=b_ms, bound_by=b_by)
-        emit("kernels", **row)
-        check(ok, f"cca_step disagrees with its plain version at {name}: {row}")
-        rows[("cca_step", name)] = row
+    fluid_scan_rows(torch, cases, rows, ptxas)
+    cca_step_rows(torch, cases, rng, rows)
 
     k3_cases = [(f"[{STEPS}, {fs.incidence.shape[0]}] {name}",
                  rng.uniform(1e8, 1e10, (STEPS, fs.incidence.shape[0])), 20, 0.0, "time")
@@ -364,21 +484,22 @@ def compare_results(a, b, what: str) -> dict:
 
 def phase_e2e(torch, scenarios, launches: dict) -> None:
     from repro_torch.api import run
-    from repro_torch.kernels.cca_step import cca_step
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
     from repro_torch.kernels.steady_scan import steady_scan
     for name, scn in scenarios.items():
         n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
-        cca_step.launches = steady_scan.launches = 0
+        cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run(scn, backend="fluid")             # the card is the default
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(cca_step=cca_step.launches, steady_scan=steady_scan.launches)
-        for k, v in counts.items():
-            launches[k] += v
-        check(counts == dict(cca_step=n_phases * STEPS, steady_scan=n_phases),
-              f"{name}: launches {counts}, expected {n_phases} phases x {STEPS} steps")
+        counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
+                      cca_step=cca_step.launches)
+        for k in ("fluid_scan", "steady_scan"):
+            launches[k] += counts[k]
+        check(counts == dict(fluid_scan=n_phases, steady_scan=n_phases, cca_step=0),
+              f"{name}: launches {counts}, expected one scan per phase ({n_phases})")
         t0 = time.perf_counter()
         fluid_phases(scn)
         host_prep = time.perf_counter() - t0
@@ -446,17 +567,18 @@ def flow_scenarios(n: int, rng):
 
 def phase_batch(torch, rng) -> None:
     from repro_torch.api import run_many
-    from repro_torch.kernels.cca_step import cca_step
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
     from repro_torch.kernels.steady_scan import steady_scan
     scns = flow_scenarios(8, rng)
-    cca_step.launches = steady_scan.launches = 0
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     t0 = time.perf_counter()
     res = run_many(scns, backend="fluid")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(cca_step=cca_step.launches, steady_scan=steady_scan.launches)
-    check(counts == dict(cca_step=STEPS, steady_scan=1),
-          f"batch: launches {counts}, expected {STEPS} and 1")
+    counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
+                  cca_step=cca_step.launches)
+    check(counts == dict(fluid_scan=1, steady_scan=1, cca_step=0),
+          f"batch: launches {counts}, expected one scan and one steady_scan")
     cpu = run_many(scns, backend="fluid", device="cpu")
     errs = [compare_results(a, b, a.scenario) for a, b in zip(res, cpu)]
     emit("batch", scenarios=len(scns), flows=sum(len(r.fcts) for r in res),
@@ -779,26 +901,28 @@ def main() -> int:
     scenarios = {"gpt@128": training_scenario(n_gpus=128, scale=1.0),
                  "moe@128": training_scenario(n_gpus=128, moe=True, scale=1.0),
                  "moe@1024": training_scenario(n_gpus=1024, moe=True, scale=1.0)}
-    rows = phase_kernels(torch, scenarios, rng)
+    scan_ptxas = ptxas_report(libs["cca_step"], "fluid_scan_kernel")
+    check(len(scan_ptxas) == 2, f"fluid_scan_kernel: no ptxas report for both forms: {scan_ptxas}")
+    rows = phase_kernels(torch, scenarios, rng, scan_ptxas)
     recorded = {name: record_analytic(scn) for name, scn in scenarios.items()}
     maxmin_kernels(torch, recorded, rows)
     flash_kernels(torch, rows)
 
-    launches = {"cca_step": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0}
+    launches = {"fluid_scan": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0}
     phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
     phase_analytic(torch, scenarios, recorded, launches)
     phase_serve(torch, launches)
 
-    k1 = rows[("cca_step", "moe@1024")]
+    k1 = rows[("fluid_scan", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
     k2 = rows[("maxmin", "moe@1024 largest solve")]
     k4 = rows[("flash_attention", "granite prefill bf16 4x32/8x2048x64 causal")]
     kernels = [
-        dict(name="cca_step", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
+        dict(name="fluid_scan", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
              replaces="src/repro/kernels/cca_step/kernel.py:27",
-             launches=launches["cca_step"], max_abs_err=k1["max_abs_err"],
+             launches=launches["fluid_scan"], max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
         dict(name="steady_scan", route="cuda", source="src/repro_torch/csrc/steady_scan.cu",

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one package per kernel of the
 reference's Pallas set that the port has reached:
 
-  cca_step     the fused DCTCP fluid step (every step of the fluid engine)
+  cca_step     the DCTCP fluid scan (``fluid_scan``: every control step of
+               a fluid run in one launch) and its one-step form ``cca_step``
   steady_scan  trailing-window max/min/mean over rate histories
   maxmin       dense max-min water-filling (``maxmin_rates_torch``); the
                package also holds the exact host solver the analytic

@@ -10,10 +10,11 @@ incidence M:
     queue delay     d_f = M @ (q / C)
     CCA fluid step  (the DCTCP form)
 
-Every step goes through the ``cca_step`` kernel wrapper and the converged
+A run goes through the ``fluid_scan`` kernel wrapper and the converged
 rates through ``steady_scan``: on a CUDA device those are the hand-written
-kernels, on the CPU their plain versions.  The reference's ``lax.scan``
-is a Python loop over steps here, and its ``vmap`` a leading batch
+kernels (every control step of a run in one launch), on the CPU their plain
+versions (a Python loop over ``cca_step_plain``).  The reference's
+``lax.scan`` is that scan here, and its ``vmap`` a leading batch
 dimension.  All math is float32, as the reference runs with x64 off.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cca_step import cca_step
+from repro_torch.kernels.cca_step import fluid_scan
 from repro_torch.kernels.steady_scan import steady_scan
 from repro_torch.net.topology import Topology
 
@@ -75,27 +76,14 @@ def fluid_run(M, line, rtt0, size, bw, dt: float, steps: int,
     [L], or all with a leading batch dimension B.  Returns a dict with the
     final ``rates``, ``delivered`` and ``queues``, the rate history
     ``rate_hist`` [steps, F] and the queue history ``queue_hist``
-    [steps, L] (with the batch dimension first when given)."""
-    unbatched = M.dim() == 2
-    if unbatched:
-        M, line, rtt0, size, bw = (x.unsqueeze(0) for x in (M, line, rtt0, size, bw))
-    B, F, L = M.shape
-    R, W = line, line * rtt0
-    alpha = torch.ones_like(line)
-    delivered = torch.zeros_like(line)
-    q = torch.zeros_like(bw)
-    rate_hist = torch.empty((B, steps, F), dtype=torch.float32, device=M.device)
-    queue_hist = torch.empty((B, steps, L), dtype=torch.float32, device=M.device)
-    for t in range(steps):
-        R, W, alpha, delivered, arrivals = cca_step(
-            R, W, alpha, delivered, size, line, rtt0, M, q, bw,
-            dt=dt, g=g, ecn_k=ecn_k, mss=mss)
-        q = (q + (arrivals - bw) * dt).clamp_(0.0, 64 * ecn_k)
-        rate_hist[:, t] = R
-        queue_hist[:, t] = q
-    out = {"rates": R, "delivered": delivered, "queues": q,
-           "rate_hist": rate_hist, "queue_hist": queue_hist}
-    return {k: v[0] for k, v in out.items()} if unbatched else out
+    [steps, L] (with the batch dimension first when given).  The whole run
+    is one ``fluid_scan`` call: one kernel launch on the card."""
+    # the reference's initial state (fluid_jax.fluid_run)
+    out = fluid_scan(M, line, rtt0, size, bw, line * rtt0, torch.ones_like(line),
+                     torch.zeros_like(line), torch.zeros_like(bw),
+                     dt=dt, steps=steps, g=g, ecn_k=ecn_k, mss=mss)
+    return {"rates": out["rates"], "delivered": out["delivered"], "queues": out["queues"],
+            "rate_hist": out["rate_hist"], "queue_hist": out["queue_hist"]}
 
 
 def _t_conv(hist: torch.Tensor, w: int, dt: float, steps: int) -> float:

@@ -16,6 +16,7 @@ from repro.api.scenario import training_scenario as ref_training_scenario
 from repro.net import fluid_jax
 from repro.net.topology import leaf_spine_clos as ref_clos
 from repro_torch.api import Scenario, available_backends, run, run_many
+from repro_torch.kernels.cca_step import fluid_scan, fluid_scan_plain
 from repro_torch.kernels.steady_scan import steady_scan
 from repro_torch.net import fluid
 from repro_torch.net.topology import leaf_spine_clos
@@ -61,6 +62,59 @@ def test_fluid_run_histories_match_reference():
     # byte on queues of up to 64 * ecn_k = 4 MB
     np.testing.assert_allclose(port["queue_hist"].numpy(), np.asarray(ref["queue_hist"]),
                                rtol=RTOL, atol=1.0)
+
+
+def _scan_arrays(F, L, batch=(), seed=3):
+    """A random 0/1 incidence (every flow on link 0, so it congests) and
+    flow sizes that finish some flows within the run, as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    M = (rng.random((*batch, F, L)) < 0.3).astype(np.float32)
+    M[..., 0] = 1.0
+    f = lambda lo, hi, n: rng.uniform(lo, hi, (*batch, n)).astype(np.float32)
+    return dict(M=M, line=np.full((*batch, F), 12.5e9, np.float32),
+                rtt0=f(5e-6, 2e-5, F), size=f(1e5, 6e5, F), bw=f(2e9, 12.5e9, L))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_fluid_scan_plain_matches_reference_fluid_run(use_kernel, batch):
+    """The plain scan from the reference's initial state against the JAX
+    ``fluid_run`` (its inline step, and its Pallas step in interpret mode),
+    at the bar of ``test_fluid_run_histories_match_reference``."""
+    dt, steps = 1e-5, 200
+    a = _scan_arrays(20, 12, batch)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    line, bw = t["line"], t["bw"]
+    port = fluid_scan_plain(t["M"], line, t["rtt0"], t["size"], bw, line * t["rtt0"],
+                            torch.ones_like(line), torch.zeros_like(line),
+                            torch.zeros_like(bw), dt=dt, steps=steps)
+    assert port["rate_hist"].shape == (*batch, steps, 20)
+    assert port["queue_hist"].shape == (*batch, steps, 12)
+    for i in np.ndindex(*batch):
+        ref = fluid_jax.fluid_run(*(jnp.asarray(a[k][i]) for k in ("M", "line", "rtt0",
+                                                                     "size", "bw")),
+                                  dt, steps, use_kernel=use_kernel)
+        for k, r, atol in (("rate_hist", "rate_hist", 0.0), ("queue_hist", "queue_hist", 1.0),
+                           ("rates", "rates", 0.0), ("delivered", "delivered", 1.0),
+                           ("queues", "queues", 1.0)):
+            np.testing.assert_allclose(port[k][i].numpy(), np.asarray(ref[r]),
+                                       rtol=RTOL, atol=atol, err_msg=k)
+    done = port["delivered"] >= t["size"]
+    assert done.any() and not done.all()             # some flows finished, not all
+
+
+def test_fluid_run_on_cpu_is_the_plain_scan():
+    a = {k: torch.from_numpy(v) for k, v in _scan_arrays(16, 9, (2,)).items()}
+    launches = fluid_scan.launches
+    out = fluid.fluid_run(a["M"], a["line"], a["rtt0"], a["size"], a["bw"], 1e-5, 50)
+    assert fluid_scan.launches == launches
+    want = fluid_scan_plain(a["M"], a["line"], a["rtt0"], a["size"], a["bw"],
+                            a["line"] * a["rtt0"], torch.ones_like(a["line"]),
+                            torch.zeros_like(a["line"]), torch.zeros_like(a["bw"]),
+                            dt=1e-5, steps=50)
+    assert set(out) == {"rates", "delivered", "queues", "rate_hist", "queue_hist"}
+    for k, v in out.items():
+        assert torch.equal(v, want[k]), k
 
 
 def test_fluid_converged_rates_match_reference_and_fair_share():

@@ -16,13 +16,15 @@ import torch
 
 from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, run_many, training_scenario
 from repro_torch.configs.registry import ARCHS
-from repro_torch.kernels.cca_step import cca_step, cca_step_plain
+from repro_torch.kernels.cca_step import cca_step, cca_step_plain, fluid_scan, fluid_scan_plain
+from repro_torch.kernels.cca_step.ops import workspace_bytes
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_arrays,
                                         maxmin_rates_torch)
 from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 from repro_torch.launch import serve
 from repro_torch.models.api import build_model
+from repro_torch.net.fluid import fluid_run
 
 pytestmark = pytest.mark.gpu
 RNG = np.random.default_rng(5)
@@ -68,6 +70,79 @@ def test_cca_step_kernel_refuses_a_non_contiguous_input(cuda):
         cca_step(**{**a, "M": M_t}, dt=1e-5)
 
 
+SCAN_KEYS = ("M", "line", "rtt0", "size", "bw", "W", "alpha", "delivered", "q")
+# the histories' bar (tests/test_torch_fluid.py): rtol 1e-4, and one byte
+# of atol on byte counts (queues, delivered)
+SCAN_ATOL = {"queues": 1.0, "queue_hist": 1.0, "delivered": 1.0}
+SMEM_OPTIN = 232_448          # an H100 block's shared memory limit, bytes
+
+
+def _assert_scan_close(out, ref):
+    for k, r in ref.items():
+        torch.testing.assert_close(out[k], r, rtol=1e-4, atol=SCAN_ATOL.get(k, 0.0),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("steps", [1, 200])
+@pytest.mark.parametrize("F,L,B", [(1, 1, None), (64, 64, None), (129, 96, None),
+                                   (1024, 400, None), (100, 40, 16), (4096, 2048, None)])
+def test_fluid_scan_kernel_matches_plain(cuda, F, L, B, steps):
+    """From a mid-run state; 4096 x 2048's workspace exceeds shared memory,
+    so it runs from the global scratch buffer."""
+    if (F, L) == (4096, 2048):
+        assert workspace_bytes(F, L) > SMEM_OPTIN
+    elif F <= 1024:
+        assert workspace_bytes(F, L) <= SMEM_OPTIN
+    a = _cca_inputs(F, L, batch=(B,) if B else (), device=cuda)
+    args = [a[k] for k in SCAN_KEYS]
+    launches = fluid_scan.launches
+    out = fluid_scan(*args, dt=1e-5, steps=steps)
+    ref = fluid_scan_plain(*args, dt=1e-5, steps=steps)
+    torch.cuda.synchronize()
+    assert fluid_scan.launches == launches + 1
+    assert out["rate_hist"].shape == ((B,) if B else ()) + (steps, F)
+    _assert_scan_close(out, ref)
+
+
+def test_fluid_scan_kernel_is_deterministic_and_steps_zero_launches_nothing(cuda):
+    a = _cca_inputs(300, 120, batch=(3,), device=cuda)
+    args = [a[k] for k in SCAN_KEYS]
+    one, two = (fluid_scan(*args, dt=1e-5, steps=200) for _ in range(2))
+    for k in one:
+        assert torch.equal(one[k], two[k]), k
+    launches = fluid_scan.launches
+    none = fluid_scan(*args, dt=1e-5, steps=0)
+    assert fluid_scan.launches == launches
+    assert none["rate_hist"].shape == (3, 0, 300) and torch.equal(none["queues"], a["q"])
+
+
+def test_fluid_run_is_one_scan_launch(cuda):
+    a = _cca_inputs(200, 80, device=cuda)
+    scans, steps = fluid_scan.launches, cca_step.launches
+    out = fluid_run(a["M"], a["line"], a["rtt0"], a["size"], a["bw"], 1e-5, 200)
+    assert (fluid_scan.launches, cca_step.launches) == (scans + 1, steps)
+    line, bw = a["line"], a["bw"]
+    ref = fluid_scan_plain(a["M"], line, a["rtt0"], a["size"], bw, line * a["rtt0"],
+                           torch.ones_like(line), torch.zeros_like(line),
+                           torch.zeros_like(bw), dt=1e-5, steps=200)
+    _assert_scan_close({"rates": out["rates"], "delivered": out["delivered"],
+                        "queues": out["queues"], "rate_hist": out["rate_hist"],
+                        "queue_hist": out["queue_hist"]},
+                       {k: ref[k] for k in ("rates", "delivered", "queues", "rate_hist",
+                                            "queue_hist")})
+
+
+def test_kernel_wrappers_refuse_a_non_binary_incidence_on_card(cuda):
+    a = _cca_inputs(64, 32, device=cuda)
+    a["M"][5, 3] = 0.5
+    launches = fluid_scan.launches, cca_step.launches
+    with pytest.raises(ValueError, match="0/1 incidence"):
+        fluid_scan(*(a[k] for k in SCAN_KEYS), dt=1e-5, steps=10)
+    with pytest.raises(ValueError, match="0/1 incidence"):
+        cca_step(**a, dt=1e-5)
+    assert (fluid_scan.launches, cca_step.launches) == launches
+
+
 def test_steady_scan_kernel_matches_plain(cuda):
     hist = torch.tensor(RNG.uniform(1e8, 1e10, (4, 200, 300)), dtype=torch.float32,
                         device=cuda)
@@ -97,9 +172,10 @@ def _close(a, b):
 def test_run_on_card_goes_through_the_kernels(cuda):
     scn = training_scenario(n_gpus=32, moe=True)
     n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
-    cca_step.launches = steady_scan.launches = 0
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     card = run(scn)                                  # the card is the default
-    assert (cca_step.launches, steady_scan.launches) == (n_phases * 200, n_phases)
+    assert (fluid_scan.launches, steady_scan.launches) == (n_phases, n_phases)
+    assert cca_step.launches == 0
     assert card.extras["device"] == torch.cuda.get_device_name(0)
     _close(card, run(scn, device="cpu"))
 
@@ -109,9 +185,10 @@ def test_run_many_on_card_is_one_batched_run(cuda):
     scns = [Scenario(f"s{i}", topo, flows=[
         FlowSpec(j, j, 8 + (j + i) % 8, size=1e6 * (i + 1)) for j in range(4 + i)])
         for i in range(4)]
-    cca_step.launches = steady_scan.launches = 0
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     card = run_many(scns, steps=120)
-    assert (cca_step.launches, steady_scan.launches) == (120, 1)
+    assert (fluid_scan.launches, steady_scan.launches) == (1, 1)
+    assert cca_step.launches == 0
     for a, b in zip(card, run_many(scns, steps=120, device="cpu")):
         _close(a, b)
 

@@ -14,7 +14,7 @@ import torch
 from repro.core.steady import fluctuation, fluctuation_batch
 from repro.kernels.cca_step.ref import cca_step_ref
 from repro.kernels.steady_scan.ref import steady_scan_ref
-from repro_torch.kernels.cca_step import cca_step
+from repro_torch.kernels.cca_step import cca_step, cca_step_plain, fluid_scan, fluid_scan_plain
 from repro_torch.kernels.steady_scan import steady_scan
 
 RNG = np.random.default_rng(11)
@@ -103,6 +103,76 @@ def test_cca_step_refuses_bad_inputs():
         cca_step(**{**a, "M": a["M"].to(torch.int32)}, dt=1e-5)
     with pytest.raises(ValueError, match="M must be"):
         cca_step(**{**a, "M": a["M"][0]}, dt=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# fluid_scan (the scan of cca_step, with the queue update)
+# --------------------------------------------------------------------- #
+def _scan_args(a):
+    """fluid_scan's positional inputs from a cca_step input dict."""
+    t = _torch(a)
+    return [t[k] for k in ("M", "line", "rtt0", "size", "bw", "W", "alpha", "delivered", "q")]
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_fluid_scan_one_step_is_cca_step_plain_and_queue_update(batch):
+    a = _cca_inputs(50, 20, batch)
+    t = _torch(a)
+    out = fluid_scan(*_scan_args(a), dt=1e-5, steps=1)
+    R2, W2, a2, d2, arr = cca_step_plain(**t, dt=1e-5)
+    q2 = (t["q"] + (arr - t["bw"]) * 1e-5).clamp(0.0, 64 * 64_000.0)
+    for k, want in (("rates", R2), ("W", W2), ("alpha", a2), ("delivered", d2),
+                    ("arrivals", arr), ("queues", q2)):
+        assert torch.equal(out[k], want), k
+    assert torch.equal(out["rate_hist"], R2.unsqueeze(-2))
+    assert torch.equal(out["queue_hist"], q2.unsqueeze(-2))
+
+
+def test_fluid_scan_wrapper_on_cpu_is_the_plain_scan():
+    a = _cca_inputs(30, 12, (2,))
+    launches = fluid_scan.launches
+    out = fluid_scan(*_scan_args(a), dt=1e-5, steps=40, history=False)
+    want = fluid_scan_plain(*_scan_args(a), dt=1e-5, steps=40)
+    assert fluid_scan.launches == launches              # CPU tensors: no kernel launch
+    assert out["rate_hist"] is None and out["queue_hist"] is None
+    for k in ("rates", "W", "alpha", "delivered", "queues", "arrivals"):
+        assert torch.equal(out[k], want[k]), k
+    assert torch.equal(want["rate_hist"][:, -1], want["rates"])
+
+
+def test_fluid_scan_zero_steps_returns_the_initial_state():
+    a = _cca_inputs(9, 4)
+    t = _torch(a)
+    out = fluid_scan(*_scan_args(a), dt=1e-5, steps=0)
+    for k, want in (("rates", t["line"]), ("W", t["W"]), ("alpha", t["alpha"]),
+                    ("delivered", t["delivered"]), ("queues", t["q"]),
+                    ("arrivals", torch.zeros(4))):
+        assert torch.equal(out[k], want), k
+    assert out["rate_hist"].shape == (0, 9) and out["queue_hist"].shape == (0, 4)
+
+
+@pytest.mark.parametrize("bad", [0.5, 2.0, -1.0, float("nan")])
+def test_kernel_wrappers_refuse_a_non_binary_incidence(bad):
+    a = _cca_inputs(8, 4)
+    a["M"][3, 2] = bad
+    with pytest.raises(ValueError, match="0/1 incidence"):
+        fluid_scan(*_scan_args(a), dt=1e-5, steps=5)
+    with pytest.raises(ValueError, match="0/1 incidence"):
+        cca_step(**_torch(a), dt=1e-5)
+
+
+def test_fluid_scan_refuses_bad_inputs():
+    args = _scan_args(_cca_inputs(8, 4))
+    with pytest.raises(ValueError, match="q must have shape"):
+        fluid_scan(*args[:8], args[8][:3], dt=1e-5, steps=5)
+    with pytest.raises(ValueError, match="W must have shape"):
+        fluid_scan(*args[:5], args[5][:7], *args[6:], dt=1e-5, steps=5)
+    with pytest.raises(TypeError, match="floating-point"):
+        fluid_scan(args[0].to(torch.int32), *args[1:], dt=1e-5, steps=5)
+    with pytest.raises(ValueError, match="M must be"):
+        fluid_scan(args[0][0], *args[1:], dt=1e-5, steps=5)
+    with pytest.raises(ValueError, match="steps must be"):
+        fluid_scan(*args, dt=1e-5, steps=-1)
 
 
 # --------------------------------------------------------------------- #
