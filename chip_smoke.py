@@ -16,9 +16,15 @@ Phases, one JSON line each:
             ``fluid_scan`` (K1) runs a phase's 200 control steps in one
             launch from the fluid engine's initial state, held to the plain
             loop at the histories' bar, with its time per scan and per step
-            and the bound's parts; ``cca_step`` is the same kernel at one
-            step from a random mid-run state;
-            ``maxmin`` must equal its plain version bit for bit;
+            and the bound's parts; its fused steady detector (the window
+            the engine asks for) must equal ``steady_scan`` (K3) over the
+            scan's own history bit for bit, with the scan's time with and
+            without it; ``cca_step`` is the same kernel at one step from a
+            random mid-run state; K3 alone also runs at the reference's
+            production monitor size;
+            ``maxmin`` must equal its plain version bit for bit, with its
+            regime (one cluster, or the cooperative grid) and the kernels a
+            solve launches;
             ``flash_attention`` at the reference test's shapes (float32 and
             bf16), its convex-hull property, and granite-3-2b's prefill
             shape, each with the device time of the kernel, of its plain
@@ -27,10 +33,10 @@ Phases, one JSON line each:
 4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
             real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
             card, held against the same call on the CPU, and moe@1024 on the
-            card alone; each run's kernel launch counts must equal phases
-            (fluid_scan, one scan per phase) and phases (steady_scan);
+            card alone; each run's kernel launch counts must be one
+            fluid_scan per phase and no steady_scan (fused into the scan);
 5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU:
-            one fluid_scan and one steady_scan launch;
+            one fluid_scan launch and no steady_scan;
 6. profile  gpt@128 again, untraced and then under ``torch.profiler``: the
             device's busy share of the wall time and its time by kernel;
 7. analytic ``repro_torch.api.run(..., backend="analytic")`` (host-only, exact)
@@ -70,11 +76,13 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tools"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 STEPS = 200                  # the fluid engine's default control intervals
+WINDOW = max(8, STEPS // 10)  # the steady detector's window the engine asks for
 K1_TOL = dict(rtol=1e-5, atol=1e-3)   # tests/test_kernels.py cca_step bar
 # a scan's histories and final state, tests/test_torch_fluid.py's bar: rtol
 # 1e-4, and one byte of atol on byte counts (queues, delivered)
@@ -296,41 +304,67 @@ def scan_inputs(torch, fs, batch: int | None) -> tuple[dict, float]:
 
 
 def fluid_scan_rows(torch, cases, rows: dict, ptxas: dict) -> None:
-    """K1 as the fluid engine runs it: one scan of STEPS control steps."""
+    """K1 as the fluid engine runs it: one scan of STEPS control steps with
+    the steady detector over its last WINDOW steps; and that detector (K3
+    fused into the scan) against K3 over the scan's own history."""
     from repro_torch.kernels.cca_step import fluid_scan, fluid_scan_plain
     from repro_torch.kernels.cca_step.ops import fluid_scan_kernel, workspace_bytes
+    from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
     for name, fs, batch in cases:
         a, dt = scan_inputs(torch, fs, batch)
-        consts = dict(dt=dt, steps=STEPS, g=1 / 16, ecn_k=64_000.0, mss=1000.0, history=True)
+        consts = dict(dt=dt, steps=STEPS, g=1 / 16, ecn_k=64_000.0, mss=1000.0, history=True,
+                      window=WINDOW)
+        bare = {**consts, "window": None}
         args = [a[k] for k in SCAN_KEYS]
         out = fluid_scan(*args, **consts)
         ref = fluid_scan_plain(*args, **consts)
+        hist_t = out["rate_hist"].transpose(-1, -2)
+        k3_fluct, k3_mean = steady_scan(hist_t, WINDOW)
+        # the window's stats against the plain detector over the same
+        # history, the scan's own, at K3's bars (fluct's looser)
+        win_fluct, win_mean = steady_scan_plain(hist_t, WINDOW)
         torch.cuda.synchronize()
         errs, ok = {}, True
         for k, r in ref.items():
-            abs_err, rel_err, k_ok = max_errs([out[k]], [r], SCAN_RTOL, SCAN_ATOL.get(k, 0.0))
+            if k == "win_mean":
+                r, rtol, atol = win_mean, K3_TOL["rtol"], K3_TOL["atol"]
+            elif k == "win_fluct":
+                r, rtol, atol = win_fluct, K3_TOL["fluct_rtol"], 0.0
+            else:
+                rtol, atol = SCAN_RTOL, SCAN_ATOL.get(k, 0.0)
+            abs_err, rel_err, k_ok = max_errs([out[k]], [r], rtol, atol)
             errs[k] = dict(max_abs_err=abs_err, max_rel_err=rel_err)
             ok = ok and k_ok
         bit_equal = all(torch.equal(out[k], ref[k]) for k in ref)
+        fused_equal = (torch.equal(out["win_mean"], k3_mean)
+                       and torch.equal(out["win_fluct"], k3_fluct))
         t = batched(a)
-        ms, _ = device_ms(torch, lambda t=t: fluid_scan_kernel(t, **consts), n=20)
+        # with and without the window, in turns: without, with, with, without
+        times = [device_ms(torch, lambda t=t, c=c: fluid_scan_kernel(t, **c), n=20)[0]
+                 for c in (bare, consts, consts, bare)]
+        ms, ms_bare = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
         call_ms = host_ms(torch, lambda: fluid_scan(*args, **consts), n=5)
         plain_ms, _ = device_ms(torch, lambda: fluid_scan_plain(*args, **consts), n=3)
         B = batch or 1
         F, L = fs.incidence.shape
         nnz = B * int(fs.incidence.sum())
         # inputs once (M dense float32, 6 flow and 2 link vectors), outputs once
-        # (4 flow and 2 link vectors, both histories)
-        nbytes = 4 * B * (F * L + 6 * F + 2 * L + 4 * F + 2 * L + STEPS * (F + L))
-        flops = scan_flops(B, F, L, nnz, STEPS)
+        # (4 flow and 2 link vectors, both histories, the window's 2 flow vectors);
+        # the window adds 3 operations a flow a step and 4 a flow at the end
+        nbytes = 4 * B * (F * L + 6 * F + 2 * L + 4 * F + 2 * L + STEPS * (F + L) + 2 * F)
+        flops = scan_flops(B, F, L, nnz, STEPS) + B * F * (3 * WINDOW + 4)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
         b_ms, b_by = bound(nbytes, flops)
         ws = workspace_bytes(F, L)
         row = dict(kernel="fluid_scan", case=name, B=B, F=F, L=L, steps=STEPS, dt=dt,
-                   set_bits=nnz, errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   window=WINDOW, set_bits=nnz, errors=errs,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                    bit_equal_to_plain=bit_equal,
-                   tolerance=dict(rtol=SCAN_RTOL, atol=SCAN_ATOL), ok=ok,
-                   ms=ms, ns_per_step=ms / STEPS * 1e6, host_ms_per_call=call_ms,
+                   tolerance=dict(rtol=SCAN_RTOL, atol=SCAN_ATOL,
+                                  window=dict(against="steady_scan_plain over the scan's "
+                                              "rate history", **K3_TOL)), ok=ok,
+                   ms=ms, ms_without_window=ms_bare, ns_per_step=ms / STEPS * 1e6,
+                   host_ms_per_call=call_ms,
                    plain_ms=plain_ms, plain_note="plain PyTorch loop over steps, not a yardstick",
                    bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_bytes_ms=bytes_ms,
                    bound_flops=flops, bound_ops_ms=ops_ms,
@@ -341,6 +375,18 @@ def fluid_scan_rows(torch, cases, rows: dict, ptxas: dict) -> None:
         emit("kernels", **row)
         check(ok, f"fluid_scan disagrees with its plain version at {name}: {row}")
         rows[("fluid_scan", name)] = row
+        # the detector's own bound: the window's rates read once, 2 outputs
+        n_series = B * F
+        k3_ms, k3_by = bound(4 * n_series * (WINDOW + 2), 3 * n_series * WINDOW + 4 * n_series)
+        fused = dict(kernel="steady_scan", case=f"fused into fluid_scan, {name}", window=WINDOW,
+                     bit_equal_to_k3=fused_equal, tolerance="bit-equal (torch.equal) to "
+                     "steady_scan over the scan's rate history", ok=fused_equal,
+                     ms=ms - ms_bare, scan_ms_with_window=ms, scan_ms_without_window=ms_bare,
+                     scan_cost_share=(ms - ms_bare) / ms_bare, bound_ms=k3_ms, bound_by=k3_by,
+                     note="ms is the scan's time with the window less without it")
+        emit("kernels", **fused)
+        check(fused_equal, f"fluid_scan's fused detector differs from steady_scan at {name}")
+        rows[("steady_scan fused", name)] = fused
 
 
 def phase_kernels(torch, scenarios, rng, ptxas: dict) -> dict:
@@ -363,6 +409,10 @@ def phase_kernels(torch, scenarios, rng, ptxas: dict) -> dict:
     dead[1] = 1500.0
     dead[2] = rng.uniform(1e8, 1e10, 32)
     k3_cases.append(("[130, 32] atol dead band", dead, 32, 2000.0, "series"))
+    # the reference's production monitor (src/repro/kernels/steady_scan/kernel.py:5):
+    # 10^5 flows by 128 samples, series-major
+    k3_cases.append(("[100000, 128] production monitor", rng.uniform(1e8, 1e10, (100_000, 128)),
+                     32, 0.0, "series"))
     for name, h, window, atol, layout in k3_cases:
         ht = torch.from_numpy(h.astype(np.float32)).cuda()
         # the fluid engine's histories are time-major: scan their transpose
@@ -498,8 +548,9 @@ def phase_e2e(torch, scenarios, launches: dict) -> None:
                       cca_step=cca_step.launches)
         for k in ("fluid_scan", "steady_scan"):
             launches[k] += counts[k]
-        check(counts == dict(fluid_scan=n_phases, steady_scan=n_phases, cca_step=0),
-              f"{name}: launches {counts}, expected one scan per phase ({n_phases})")
+        check(counts == dict(fluid_scan=n_phases, steady_scan=0, cca_step=0),
+              f"{name}: launches {counts}, expected one scan per phase ({n_phases}) "
+              "and no steady_scan (fused into the scan)")
         t0 = time.perf_counter()
         fluid_phases(scn)
         host_prep = time.perf_counter() - t0
@@ -577,8 +628,8 @@ def phase_batch(torch, rng) -> None:
     wall = time.perf_counter() - t0
     counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
                   cca_step=cca_step.launches)
-    check(counts == dict(fluid_scan=1, steady_scan=1, cca_step=0),
-          f"batch: launches {counts}, expected one scan and one steady_scan")
+    check(counts == dict(fluid_scan=1, steady_scan=0, cca_step=0),
+          f"batch: launches {counts}, expected one scan and no steady_scan")
     cpu = run_many(scns, backend="fluid", device="cpu")
     errs = [compare_results(a, b, a.scenario) for a, b in zip(res, cpu)]
     emit("batch", scenarios=len(scns), flows=sum(len(r.fcts) for r in res),
@@ -636,6 +687,12 @@ def maxmin_cases(recorded: dict) -> list:
     links = rng.random((F, L)).argpartition(3, axis=1)[:, :3].astype(np.int64).ravel()
     off = np.arange(0, 3 * (F + 1), 3, dtype=np.int64)
     cases.append(("10k x 128 ceiling", *incidence_from_csr(links, off, rng.uniform(1e9, 1e10, L))))
+    # masks (4 MB) beyond a 16-CTA cluster's shared memory: the cooperative grid
+    F, L = 16_384, 2048
+    links = rng.random((F, L)).argpartition(4, axis=1)[:, :4].astype(np.int64).ravel()
+    off = np.arange(0, 4 * (F + 1), 4, dtype=np.int64)
+    cases.append(("16384 x 2048 grid regime",
+                  *incidence_from_csr(links, off, rng.uniform(1e9, 1e10, L))))
     for name, paths, bw in [("zero-bandwidth link", {1: [0, 1], 2: [1]}, [5.0, 0.0]),
                             ("single flow", {1: [0]}, [7.0]),
                             ("no links", {1: [], 2: []}, [7.0])]:
@@ -645,7 +702,10 @@ def maxmin_cases(recorded: dict) -> list:
 
 
 def maxmin_kernels(torch, recorded: dict, rows: dict) -> None:
+    from hopper_barriers import barrier_ns
+
     from repro_torch.kernels.maxmin import maxmin, maxmin_plain
+    from repro_torch.kernels.maxmin.ops import maxmin_kernel, plan
     for name, inc_np, cap_np in maxmin_cases(recorded):
         inc = torch.from_numpy(inc_np).cuda()
         cap = torch.from_numpy(cap_np).cuda()
@@ -657,19 +717,39 @@ def maxmin_kernels(torch, recorded: dict, rows: dict) -> None:
         launched = maxmin.launches - launches
         ok = torch.equal(out, ref) and int(rounds) == int(ref_rounds)
         ok = ok and launched == (1 if L else 0)
-        row = dict(kernel="maxmin", case=name, F=F, L=L,
+        row = dict(kernel="maxmin", case=name, F=F, L=L, set_bits=int(inc_np.sum()),
                    max_abs_err=float((out - ref).abs().max()) if F else 0.0,
-                   tolerance="bit-equal (torch.equal)", ok=ok,
+                   tolerance="bit-equal (torch.equal), equal rounds", ok=ok,
                    effective_rounds=int(rounds), static_rounds=max(L, 1))
         if L:
-            ms, host_ms = device_ms(torch, lambda: maxmin(inc, cap))
+            how = plan(F, L)
+            ms, _ = device_ms(torch, lambda: maxmin_kernel(inc, cap))
+            call_ms = host_ms(torch, lambda: maxmin(inc, cap))
             plain_ms, _ = device_ms(torch, lambda: maxmin_plain(inc, cap), n=3)
+            # what these inputs need: inc read once, cap read and the rates
+            # written once; the 0/1 test of every entry, and in each round that
+            # froze flows a test of every set bit and 4 operations a link
+            n_rounds = int(rounds)
             nbytes = 4 * (F * L + L + F)
-            flops = 3 * 2 * F * L * max(int(rounds), 1)
+            flops = F * L + n_rounds * (row["set_bits"] + 4 * L)
             b_ms, b_by = bound(nbytes, flops)
-            row.update(ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
+            # the rounds' latency floor: one barrier a round across the CTAs
+            # (a cluster's, or the cooperative grid's), measured here
+            kind, n_blocks = (("cluster", how["cluster"]) if how["regime"] == "cluster"
+                              else ("grid", how["blocks"]))
+            sync_ns = barrier_ns(kind, n_blocks, how["threads"])
+            row.update(regime=how["regime"], cluster_ctas=how["cluster"],
+                       global_links=how["global_links"],
+                       kernels_per_solve=how["kernels"], smem_bytes_per_block=how["smem_bytes"],
+                       ms=ms, us_per_round=ms * 1e3 / max(n_rounds, 1),
+                       host_ms_per_call=call_ms, plain_ms=plain_ms,
+                       note="ms times the launch alone; host_ms_per_call the wrapper, which "
+                            "reads the 0/1 flag back (a sync)",
                        plain_note="plain PyTorch version (static L rounds), not a yardstick",
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops,
+                       barrier_ns=sync_ns, barrier=f"{kind} of {n_blocks} x {how['threads']}",
+                       latency_floor_ms=n_rounds * sync_ns / 1e6,
+                       latency_floor=f"{n_rounds} rounds x 1 {kind} barrier")
         else:
             row.update(ms=None, note="no links: the wrapper answers without a launch")
         emit("kernels", **row)
@@ -889,8 +969,15 @@ def main() -> int:
     emit("device", **device, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    import threading
+
+    from hopper_barriers import library as barrier_library
     t0 = time.perf_counter()
+    probe = threading.Thread(target=barrier_library)     # K2's barrier probe, beside
+    probe.start()
     libs = load("cca_step", "steady_scan", "maxmin", "flash_attention")
+    probe.join()
+    barrier_library()                                     # raises if its build failed
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln for ln in lib.log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -917,6 +1004,7 @@ def main() -> int:
 
     k1 = rows[("fluid_scan", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
+    k3_fused = rows[("steady_scan fused", "moe@1024")]
     k2 = rows[("maxmin", "moe@1024 largest solve")]
     k4 = rows[("flash_attention", "granite prefill bf16 4x32/8x2048x64 causal")]
     kernels = [
@@ -929,12 +1017,15 @@ def main() -> int:
              replaces="src/repro/kernels/steady_scan/kernel.py:22",
              launches=launches["steady_scan"], max_abs_err=k3["max_abs_err"],
              ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None),
+             bound_by=k3["bound_by"], library_ms=None, fused_into="fluid_scan",
+             fused_ms=k3_fused["ms"], fused_bit_equal=k3_fused["bit_equal_to_k3"]),
         dict(name="maxmin", route="cuda", source="src/repro_torch/csrc/maxmin.cu",
              replaces="src/repro/kernels/maxmin/kernel.py:30",
              launches=launches["maxmin"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+             bound_by=k2["bound_by"], library_ms=None, regime=k2["regime"],
+             kernels_per_solve=k2["kernels_per_solve"],
+             latency_floor_ms=k2["latency_floor_ms"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:28",

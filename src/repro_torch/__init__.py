@@ -6,8 +6,8 @@ numbers.  What runs so far:
 
 - the ``fluid`` backend end to end: ``repro_torch.api.run(scenario,
   backend="fluid")`` solves each phase's fluid rates through the
-  hand-written ``fluid_scan`` kernel (the phase's whole DCTCP scan in one
-  launch) and the ``steady_scan`` kernel;
+  hand-written ``fluid_scan`` kernel (the phase's whole DCTCP scan and its
+  steady detector in one launch);
 - the ``analytic`` backend (host-only, exact) and the dense max-min solver
   ``maxmin_rates_torch`` through the ``maxmin`` kernel;
 - the architecture zoo's serving path for the dense-attention models

@@ -4,8 +4,8 @@ The port has its own registry, under the reference's engine names, and no
 run store: nothing keys a result by backend name across the two packages.
 
     fluid     DCTCP fluid rate dynamics through the hand-written
-              ``fluid_scan`` kernel (a phase's control steps in one launch)
-              and ``steady_scan`` (batched sweeps in ``run_batch``)
+              ``fluid_scan`` kernel (a phase's control steps and its steady
+              detector in one launch; batched sweeps in ``run_batch``)
     analytic  flow-level max-min fair sharing, on the host (cheapest,
               coarsest)
 

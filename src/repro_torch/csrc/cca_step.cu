@@ -43,8 +43,16 @@
 //     links   a thread owns a link, walks the set bits of its column for
 //             the arrivals, and updates its queue, q / bw and p_l.
 //   Rate and queue histories are coalesced stores of F and L floats a step,
-//   time-major ([B, steps, F] and [B, steps, L]), so steady_scan reads them
-//   in place.
+//   time-major ([B, steps, F] and [B, steps, L]).
+//   epilogue  with a window w, the steady detector of steady_scan.cu (the
+//             Pallas `_steady_kernel`, src/repro/kernels/steady_scan/kernel.py:22)
+//             over the last w steps of each flow's rate: during those steps
+//             the flow's thread keeps a running max, min and float32 sum (in
+//             increasing t, the order of steady_scan_kernel's loop, so the
+//             result is bit-equal to it on the same history) in the
+//             workspace, and the epilogue writes mean = sum / w and the
+//             fluctuation with its atol dead band.  That saves the fluid
+//             engine a second launch and the re-read of the history per phase.
 // With M in {0, 1}, M * x is exactly x for finite x, so a term skipped for
 // its 0 bit is the +0 the dense sum would add (bw > 0 keeps q / bw finite).
 // Both sums accumulate in float64 and round once to float32: the sum rounded
@@ -56,7 +64,7 @@
 // 1024 threads (64 registers) the float64 sums spilled, and 1024 threads'
 // spills overflowed the L1 beside the workspace: 10.8 us a step at moe@1024.
 // The workspace (masks and vectors) lives in shared memory when it fits
-// the block's opt-in limit (1024 x 400: 142 KB of 227 KB), else in a global
+// the block's opt-in limit (1024 x 400: 154 KB of 227 KB), else in a global
 // scratch buffer of B workspaces that the wrapper allocates, where L1/L2
 // keep it: the same code through another pointer.  Every update rounds each
 // operation on its own (__fmul_rn, __fadd_rn, ...: no FMA contraction), as
@@ -69,7 +77,8 @@
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kFlowVectors = 7;   // R, W, alpha, delivered, size, line, rtt0
+// R, W, alpha, delivered, size, line, rtt0, and the window's max, min, sum
+constexpr int kFlowVectors = 10;
 constexpr int kLinkVectors = 4;   // q, bw, q / bw, p_l
 
 struct ScanArgs {
@@ -90,9 +99,11 @@ struct ScanArgs {
   float* arrivals_out;     // [B, L], the last step's
   float* rate_hist;        // [B, steps, F] or null
   float* queue_hist;       // [B, steps, L] or null
+  float* win_mean;         // [B, F], written when window > 0
+  float* win_fluct;        // [B, F]
   uint32_t* scratch;       // B workspaces when they are not in shared memory
-  int F, L, steps;
-  float dt, g, ecn_k, two_k, q_max, mss;
+  int F, L, steps, window;
+  float dt, g, ecn_k, two_k, q_max, mss, atol;
 };
 
 __host__ __device__ long long workspace_words(int F, int L) {
@@ -159,7 +170,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fluid_scan_kernel(const ScanAr
   float* size = dlv + F;
   float* line = size + F;
   float* rtt0 = line + F;
-  float* q = rtt0 + F;
+  float* win_max = rtt0 + F;
+  float* win_min = win_max + F;
+  float* win_sum = win_min + F;
+  float* q = win_sum + F;
   float* bw = q + L;
   float* qbw = bw + L;
   float* pl = qbw + L;
@@ -201,6 +215,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fluid_scan_kernel(const ScanAr
     size[f] = a.size[i];
     line[f] = a.line[i];
     rtt0[f] = a.rtt0[i];
+    win_max[f] = -INFINITY;
+    win_min[f] = INFINITY;
+    win_sum[f] = 0.0f;
   }
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     const float ql = a.q[b * L + l], bl = a.bw[b * L + l];
@@ -211,6 +228,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fluid_scan_kernel(const ScanAr
   }
   __syncthreads();
 
+  const int win_start = a.steps - a.window;   // steps when there is no window
   for (int t = 0; t < a.steps; ++t) {
     // flows: queue delay, worst-hop mark, the DCTCP update
     for (int f = threadIdx.x; f < F; f += blockDim.x) {
@@ -238,6 +256,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fluid_scan_kernel(const ScanAr
       R[f] = r2;
       dlv[f] = fminf(__fadd_rn(d, __fmul_rn(r2, a.dt)), sz);
       if (a.rate_hist) a.rate_hist[(b * a.steps + t) * F + f] = r2;
+      if (t >= win_start) {
+        win_max[f] = fmaxf(win_max[f], r2);
+        win_min[f] = fminf(win_min[f], r2);
+        win_sum[f] = __fadd_rn(win_sum[f], r2);
+      }
     }
     __syncthreads();
     // links: arrivals, the queue update, the next step's q / bw and p_l
@@ -263,6 +286,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fluid_scan_kernel(const ScanAr
     a.W_out[i] = W[f];
     a.alpha_out[i] = alpha[f];
     a.delivered_out[i] = dlv[f];
+    if (a.window > 0) {   // steady_scan_kernel's epilogue, operation for operation
+      const float mx = win_max[f], mn = win_min[f];
+      const float m = __fdiv_rn(win_sum[f], static_cast<float>(a.window));
+      const float fl = m > 0.0f ? __fdiv_rn(__fsub_rn(mx, mn), fmaxf(m, 1e-30f)) : INFINITY;
+      a.win_fluct[i] = mx <= a.atol ? 0.0f : fl;
+      a.win_mean[i] = m;
+    }
   }
   for (int l = threadIdx.x; l < L; l += blockDim.x) a.q_out[b * L + l] = q[l];
 }
@@ -296,20 +326,24 @@ extern "C" long long fluid_scan_scratch_bytes(int B, int F, int L) {
 
 // All arrays are float32, contiguous, on the current device: M [B, F, L],
 // flow vectors [B, F], link vectors [B, L], histories [B, steps, F] and
-// [B, steps, L] (null: not written), `scratch` as fluid_scan_scratch_bytes
-// asks (null when that is 0).  steps >= 1, F, L >= 1.  Launches on
-// `stream` and returns the cudaError_t of the launch (0 on success).
+// [B, steps, L] (null: not written), the window's mean and fluctuation
+// [B, F] (written when 1 <= window <= steps; window 0: none), `scratch` as
+// fluid_scan_scratch_bytes asks (null when that is 0).  steps >= 1,
+// F, L >= 1.  Launches on `stream` and returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int fluid_scan_launch(
     const float* M, const float* line, const float* rtt0, const float* size,
     const float* bw, const float* W, const float* alpha, const float* delivered,
     const float* q, float* R_out, float* W_out, float* alpha_out,
     float* delivered_out, float* q_out, float* arrivals_out, float* rate_hist,
-    float* queue_hist, void* scratch, int B, int F, int L, int steps, float dt,
-    float g, float ecn_k, float mss, void* stream) {
+    float* queue_hist, float* win_mean, float* win_fluct, void* scratch, int B, int F,
+    int L, int steps, int window, float dt, float g, float ecn_k, float mss, float atol,
+    void* stream) {
+  if (window < 0 || window > steps) return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs a{M, line, rtt0, size, W, alpha, delivered, bw, q,
                    R_out, W_out, alpha_out, delivered_out, q_out, arrivals_out,
-                   rate_hist, queue_hist, static_cast<uint32_t*>(scratch),
-                   F, L, steps, dt, g, ecn_k, 2.0f * ecn_k, 64.0f * ecn_k, mss};
+                   rate_hist, queue_hist, win_mean, win_fluct, static_cast<uint32_t*>(scratch),
+                   F, L, steps, window, dt, g, ecn_k, 2.0f * ecn_k, 64.0f * ecn_k, mss, atol};
   const int widest = F > L ? F : L;
   const int threads = widest >= kMaxThreads ? kMaxThreads : ((widest + 31) / 32) * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

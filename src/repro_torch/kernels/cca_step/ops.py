@@ -10,7 +10,11 @@ laid out.  :func:`fluid_scan` is that scan; :func:`cca_step` is the same
 kernel at one step.  The plain versions below are the same functions in
 PyTorch: :func:`cca_step_plain` line for line with the reference's oracle
 ``repro.kernels.cca_step.ref.cca_step_ref``, :func:`fluid_scan_plain` the
-loop of ``repro.net.fluid_jax.fluid_run`` over it.
+loop of ``repro.net.fluid_jax.fluid_run`` over it.  With a ``window``
+the scan also returns the steady detector over its last ``window`` rates
+(``win_mean``, ``win_fluct``): the kernel computes it in its epilogue,
+bit-equal to ``steady_scan`` over the same history, and the plain scan
+takes it with ``steady_scan_plain`` over its own history.
 
 Every tensor may carry a leading batch dimension B (independent
 partitions, the fluid sweep's padded batch): M is [F, L] or [B, F, L],
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.kernels import float32_input, same_device
 from repro_torch.kernels.build import load
+from repro_torch.kernels.steady_scan import steady_scan_plain
 
 _STEP_FLOW = ("R", "W", "alpha", "delivered", "size", "line", "rtt0")
 _SCAN_FLOW = ("line", "rtt0", "size", "W", "alpha", "delivered")
@@ -58,20 +63,30 @@ def cca_step_plain(R, W, alpha, delivered, size, line, rtt0, M, q, bw, *,
     return R2, W2, alpha2, delivered2, arrivals
 
 
+def _check_window(window: int | None, steps: int) -> None:
+    if window is not None and not 1 <= window <= steps:
+        raise ValueError(f"fluid_scan: window must be in 1..{steps} (the steps), got {window}")
+
+
 def fluid_scan_plain(M, line, rtt0, size, bw, W, alpha, delivered, q, *,
                      dt: float, steps: int, g: float = 1 / 16,
                      ecn_k: float = 64_000.0, mss: float = 1000.0,
-                     history: bool = True) -> dict:
+                     history: bool = True, window: int | None = None,
+                     atol: float = 0.0) -> dict:
     """``steps`` control steps from the state (W, alpha, delivered, q): a
     :func:`cca_step_plain` and the queue update each.  Returns the final
     ``rates``, ``W``, ``alpha``, ``delivered`` and ``queues``, the last
     step's ``arrivals``, and the histories ``rate_hist`` [.., steps, F] and
     ``queue_hist`` [.., steps, L] (None with ``history=False``).  With no
     step, ``rates`` is ``line`` (where a fluid run starts) and ``arrivals``
-    zero."""
+    zero.  With a ``window`` (1..steps) it also returns ``win_mean`` and
+    ``win_fluct`` [.., F]: :func:`steady_scan_plain` over the last
+    ``window`` rates of each flow, with ``atol`` its dead band."""
+    _check_window(window, steps)
+    keep = history or window is not None
     R, arrivals = line, torch.zeros_like(bw)
     rate_hist = queue_hist = None
-    if history:
+    if keep:
         rate_hist = line.new_empty((*line.shape[:-1], steps, line.shape[-1]))
         queue_hist = bw.new_empty((*bw.shape[:-1], steps, bw.shape[-1]))
     for t in range(steps):
@@ -79,11 +94,16 @@ def fluid_scan_plain(M, line, rtt0, size, bw, W, alpha, delivered, q, *,
             R, W, alpha, delivered, size, line, rtt0, M, q, bw,
             dt=dt, g=g, ecn_k=ecn_k, mss=mss)
         q = (q + (arrivals - bw) * dt).clamp_(0.0, 64 * ecn_k)
-        if history:
+        if keep:
             rate_hist[..., t, :] = R
             queue_hist[..., t, :] = q
-    return dict(zip(_STATE, (R, W, alpha, delivered, q, arrivals)),
-                rate_hist=rate_hist, queue_hist=queue_hist)
+    out = dict(zip(_STATE, (R, W, alpha, delivered, q, arrivals)))
+    if window is not None:
+        out["win_fluct"], out["win_mean"] = steady_scan_plain(
+            rate_hist.transpose(-1, -2), window, atol)
+    if not history:
+        rate_hist = queue_hist = None
+    return {**out, "rate_hist": rate_hist, "queue_hist": queue_hist}
 
 
 def _checked(named: dict, flow: tuple[str, ...], who: str):
@@ -111,8 +131,8 @@ def _checked(named: dict, flow: tuple[str, ...], who: str):
 @functools.cache
 def _library():
     cdll = load("cca_step")["cca_step"].cdll
-    cdll.fluid_scan_launch.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
-                                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    cdll.fluid_scan_launch.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+                                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     cdll.fluid_scan_launch.restype = ctypes.c_int
     for fn, args in ((cdll.fluid_scan_scratch_bytes, [ctypes.c_int] * 3),
                      (cdll.fluid_scan_workspace_bytes, [ctypes.c_int] * 2)):
@@ -128,11 +148,13 @@ def workspace_bytes(F: int, L: int) -> int:
 
 
 def fluid_scan_kernel(t: dict, *, dt: float, steps: int, g: float, ecn_k: float,
-                      mss: float, history: bool) -> dict:
+                      mss: float, history: bool, window: int | None = None,
+                      atol: float = 0.0) -> dict:
     """The kernel's launch alone, on float32 CUDA inputs of shape [B, ..]
-    that :func:`fluid_scan` has checked (``steps >= 1``); it counts
-    nothing.  The wrappers call it after their checks, and a timing loop
-    may call it to time the device's work without the checks' sync."""
+    that :func:`fluid_scan` has checked (``steps >= 1``, the window in
+    ``1..steps`` or None); it counts nothing.  The wrappers call it after
+    their checks, and a timing loop may call it to time the device's work
+    without the checks' sync."""
     M = t["M"]
     dev = M.device
     for k, v in t.items():
@@ -144,6 +166,7 @@ def fluid_scan_kernel(t: dict, *, dt: float, steps: int, g: float, ecn_k: float,
     flow = [torch.empty_like(t["W"]) for _ in range(4)]
     link = [torch.empty_like(t["q"]) for _ in range(2)]
     hist = [M.new_empty((B, steps, F)), M.new_empty((B, steps, L))] if history else [None, None]
+    win = [M.new_empty((B, F)), M.new_empty((B, F))] if window else [None, None]
     lib = _library()
     with torch.cuda.device(dev):
         n = lib.fluid_scan_scratch_bytes(B, F, L)
@@ -154,29 +177,37 @@ def fluid_scan_kernel(t: dict, *, dt: float, steps: int, g: float, ecn_k: float,
             *(t[k].data_ptr() for k in ("M", "line", "rtt0", "size", "bw", "W", "alpha",
                                         "delivered", "q")),
             *(o.data_ptr() for o in flow + link),
-            *(h.data_ptr() if h is not None else None for h in hist),
+            *(h.data_ptr() if h is not None else None for h in hist + win),
             scratch.data_ptr() if scratch is not None else None,
-            B, F, L, steps, dt, g, ecn_k, mss, torch.cuda.current_stream(dev).cuda_stream)
+            B, F, L, steps, window or 0, dt, g, ecn_k, mss, atol,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fluid_scan kernel launch failed: CUDA error {err}")
-    return dict(zip(_STATE, flow + link), rate_hist=hist[0], queue_hist=hist[1])
+    out = dict(zip(_STATE, flow + link), rate_hist=hist[0], queue_hist=hist[1])
+    if window:
+        out.update(win_mean=win[0], win_fluct=win[1])
+    return out
 
 
 def fluid_scan(M, line, rtt0, size, bw, W, alpha, delivered, q, *, dt: float,
                steps: int, g: float = 1 / 16, ecn_k: float = 64_000.0,
-               mss: float = 1000.0, history: bool = True) -> dict:
+               mss: float = 1000.0, history: bool = True, window: int | None = None,
+               atol: float = 0.0) -> dict:
     """``steps`` DCTCP control steps from the state (W, alpha, delivered,
     q), each with its queue update; returns what :func:`fluid_scan_plain`
-    returns.  Inputs are upcast to float32.  On CUDA tensors this is one
+    returns, with ``win_mean`` and ``win_fluct`` when a ``window`` (1..steps)
+    is given.  Inputs are upcast to float32.  On CUDA tensors this is one
     launch of the kernel (counted in ``fluid_scan.launches``) whatever
     ``steps`` is, and none for ``steps == 0``; on CPU tensors it runs
     :func:`fluid_scan_plain`."""
     if steps < 0:
         raise ValueError(f"fluid_scan: steps must be >= 0, got {steps}")
+    _check_window(window, steps)
     named = dict(M=M, line=line, rtt0=rtt0, size=size, W=W, alpha=alpha,
                  delivered=delivered, bw=bw, q=q)
     t, dev, batched = _checked(named, _SCAN_FLOW, "fluid_scan")
-    consts = dict(dt=dt, steps=steps, g=g, ecn_k=ecn_k, mss=mss, history=history)
+    consts = dict(dt=dt, steps=steps, g=g, ecn_k=ecn_k, mss=mss, history=history,
+                  window=window, atol=atol)
     if dev.type == "cpu" or steps == 0:
         return fluid_scan_plain(*(t[k] for k in ("M", "line", "rtt0", "size", "bw", "W",
                                                  "alpha", "delivered", "q")), **consts)

@@ -11,14 +11,17 @@ port may not import.  One CSR flow-path layout (``path_links`` +
 * :func:`maxmin_rates_torch`: the dense float32 fixed-point solver on the
   incidence ``[F, L]``, the counterpart of the reference's
   ``maxmin_rates_jax``.  ``impl="kernel"`` goes through :func:`maxmin`, the
-  wrapper of the hand-written CUDA kernel ``repro_torch/csrc/maxmin.cu``
-  (which replaces the Pallas kernel ``_maxmin_kernel`` of
-  ``repro/kernels/maxmin/kernel.py``); ``impl="ref"`` through
-  :func:`maxmin_plain`, line for line with ``ref.maxmin_ref``.
+  wrapper of the hand-written CUDA kernels ``repro_torch/csrc/maxmin.cu``
+  (which replace the Pallas kernel ``_maxmin_kernel`` of
+  ``repro/kernels/maxmin/kernel.py``: the incidence packed into bitmasks,
+  the rounds in one thread-block cluster or, for masks too large for one,
+  a cooperative grid); ``impl="ref"`` through :func:`maxmin_plain`, line
+  for line with ``ref.maxmin_ref``.
 
 The dense solvers cover simple paths only (no link repeated within one
 path, as every real route is): 0/1 incidence cannot express the dict
-loop's per-occurrence capacity decrement.
+loop's per-occurrence capacity decrement.  Both refuse an incidence with
+any other value, where the reference's oracle would weigh it.
 """
 from __future__ import annotations
 
@@ -215,8 +218,12 @@ def maxmin_plain(inc: torch.Tensor, cap: torch.Tensor, *,
 
     Line for line with the reference's oracle: ``max(L, 1)`` static rounds,
     each saturating every link tied at the smallest fair share ``s`` and
-    freezing the flows that cross one at ``max(s, 0)``."""
+    freezing the flows that cross one at ``max(s, 0)``.  An ``inc`` with a
+    value other than 0 or 1 raises ``ValueError``: the kernel holds it as
+    bits, so both versions take only a 0/1 incidence."""
     inc, cap = _check(inc, cap)
+    if bool(((inc != 0) & (inc != 1)).any()):       # one reduction; syncs on the card
+        raise ValueError("maxmin: inc must be a 0/1 incidence")
     F, L = inc.shape
     if L == 0:
         rates = torch.full((F,), NOLINK_RATE, dtype=torch.float32, device=inc.device)
@@ -245,21 +252,84 @@ def maxmin_plain(inc: torch.Tensor, cap: torch.Tensor, *,
     return (rates, rounds) if with_rounds else rates
 
 
+_PLAN_KEYS = ("regime", "cluster", "kernels", "threads", "blocks", "pack_blocks",
+              "smem_bytes", "scratch_words", "global_links")
+
+
 @functools.cache
-def _launcher():
-    fn = load("maxmin")["maxmin"].cdll.maxmin_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    cdll = load("maxmin")["maxmin"].cdll
+    cdll.maxmin_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    cdll.maxmin_launch.restype = ctypes.c_int
+    cdll.maxmin_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    cdll.maxmin_plan.restype = ctypes.c_int
+    return cdll
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(F: int, L: int, device_index: int):
+    """The kernel's plan for F x L on a card, as the C array that
+    ``maxmin_launch`` takes.  Planning sets the kernels' attributes on the
+    device and asks the occupancy calculator, which costs more than a
+    launch, so each shape is planned once."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().maxmin_plan(F, L, out)
+    if err != 0:
+        raise RuntimeError(f"maxmin kernel planning failed for {F} x {L}: CUDA error {err}")
+    return out
+
+
+def plan(F: int, L: int, device=None) -> dict:
+    """How the kernel solves an F x L incidence on a card: ``regime``
+    ("cluster": one thread-block cluster of ``cluster`` CTAs holds the
+    packed incidence in shared memory; "grid": a cooperative grid over
+    L2-resident masks, with the link state in each block's shared memory,
+    or in global memory where ``global_links``), ``kernels`` launched per
+    solve (1, or 2 where a pack kernel over every SM comes first),
+    ``threads``, ``blocks``, ``pack_blocks``, ``smem_bytes`` per block and
+    ``scratch_words``."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    how = dict(zip(_PLAN_KEYS, _plan(F, L, index)))
+    how["regime"] = ("cluster", "grid")[how["regime"]]
+    how["global_links"] = bool(how["global_links"])
+    return how
+
+
+def maxmin_kernel(inc: torch.Tensor, cap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch alone, on contiguous float32 CUDA inputs that
+    :func:`maxmin` has checked (F, L >= 1): returns ``rates`` [F] and a
+    2-element int32 tensor of the rounds that froze flows and the 0/1
+    flag (1: ``inc`` holds another value, and ``rates`` are not written).
+    It counts nothing and does not synchronise, so a timing loop may call
+    it to time the device's work alone."""
+    F, L = inc.shape
+    dev = inc.device
+    how = _plan(F, L, dev.index)
+    words = how[_PLAN_KEYS.index("scratch_words")]
+    rates = torch.empty(F, dtype=torch.float32, device=dev)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().maxmin_launch(inc.data_ptr(), cap.data_ptr(), rates.data_ptr(),
+                                       scratch.data_ptr(), words, F, L, how,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"maxmin kernel launch failed for {F} x {L}: CUDA error {err}")
+    return rates, scratch[-2:]
 
 
 def maxmin(inc: torch.Tensor, cap: torch.Tensor, *, with_rounds: bool = False):
     """Dense max-min water-filling; returns [F] float32 rates (and, with
     ``with_rounds``, a 0-d tensor of the rounds that froze flows).  Inputs
-    are upcast to float32 and must be contiguous.  On CUDA tensors this
-    launches the kernel (one launch, counted in ``maxmin.launches``); on CPU
-    tensors it runs :func:`maxmin_plain`.  With no links there is nothing
-    to solve: every flow gets ``NOLINK_RATE`` and nothing is launched."""
+    are upcast to float32 and must be contiguous, and ``inc`` must be a 0/1
+    incidence (``ValueError`` otherwise, on either device).  On CUDA tensors
+    this launches the kernel (one solve, counted once in
+    ``maxmin.launches``; :func:`plan` says how many kernels it takes) and
+    reads its 0/1 flag back, which waits for the solve; on CPU tensors it
+    runs :func:`maxmin_plain`.  With no links there is nothing to solve:
+    every flow gets ``NOLINK_RATE`` and nothing is launched."""
     inc, cap = _check(inc, cap)
     if inc.device.type == "cpu":
         return maxmin_plain(inc, cap, with_rounds=with_rounds)
@@ -273,22 +343,11 @@ def maxmin(inc: torch.Tensor, cap: torch.Tensor, *, with_rounds: bool = False):
             raise ValueError(f"maxmin: {k} must be contiguous")
     if F * L >= 2**31:
         raise ValueError(f"maxmin: F*L = {F * L} overflows the kernel's indexing")
-    dev = inc.device
-    rates = torch.empty(F, dtype=torch.float32, device=dev)
-    # scratch: cap, share [L] and one partial min per block (at most 32
-    # blocks on each SM); users, cnt [L], active, newly list [F], 2 counters
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    fscratch = torch.empty(2 * L + 32 * n_sm, dtype=torch.float32, device=dev)
-    iscratch = torch.empty(2 * L + 2 * F + 2, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _launcher()(inc.data_ptr(), cap.data_ptr(), rates.data_ptr(),
-                          fscratch.data_ptr(), iscratch.data_ptr(),
-                          F, L, fscratch.numel() - 2 * L,
-                          torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"maxmin kernel launch failed: CUDA error {err}")
+    rates, out = maxmin_kernel(inc, cap)
     maxmin.launches += 1
-    return (rates, iscratch[-1].long()) if with_rounds else rates
+    if int(out[1]) != 0:             # the pack pass's flag; waits for the solve
+        raise ValueError("maxmin: inc must be a 0/1 incidence")
+    return (rates, out[0].long()) if with_rounds else rates
 
 
 maxmin.launches = 0

@@ -10,12 +10,13 @@ incidence M:
     queue delay     d_f = M @ (q / C)
     CCA fluid step  (the DCTCP form)
 
-A run goes through the ``fluid_scan`` kernel wrapper and the converged
-rates through ``steady_scan``: on a CUDA device those are the hand-written
-kernels (every control step of a run in one launch), on the CPU their plain
-versions (a Python loop over ``cca_step_plain``).  The reference's
-``lax.scan`` is that scan here, and its ``vmap`` a leading batch
-dimension.  All math is float32, as the reference runs with x64 off.
+A run goes through the ``fluid_scan`` kernel wrapper, which also takes the
+converged rates (the steady detector over the last window of the rate
+history): on a CUDA device that is the hand-written kernel (every control
+step of a run and the detector in one launch), on the CPU its plain
+version (a Python loop over ``cca_step_plain``, then ``steady_scan_plain``).
+The reference's ``lax.scan`` is that scan here, and its ``vmap`` a leading
+batch dimension.  All math is float32, as the reference runs with x64 off.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cca_step import fluid_scan
-from repro_torch.kernels.steady_scan import steady_scan
 from repro_torch.net.topology import Topology
 
 
@@ -69,21 +69,24 @@ def _f32(x, device: torch.device) -> torch.Tensor:
 
 
 def fluid_run(M, line, rtt0, size, bw, dt: float, steps: int,
-              ecn_k: float = 64_000.0, mss: float = 1000.0, g: float = 1 / 16):
+              ecn_k: float = 64_000.0, mss: float = 1000.0, g: float = 1 / 16,
+              window: int | None = None):
     """Advance DCTCP fluid dynamics ``steps`` control intervals.
 
     Float32 tensors on one device: M [F, L], flow vectors [F], link vectors
     [L], or all with a leading batch dimension B.  Returns a dict with the
     final ``rates``, ``delivered`` and ``queues``, the rate history
     ``rate_hist`` [steps, F] and the queue history ``queue_hist``
-    [steps, L] (with the batch dimension first when given).  The whole run
-    is one ``fluid_scan`` call: one kernel launch on the card."""
+    [steps, L] (with the batch dimension first when given); with a
+    ``window``, also the steady detector over the last ``window`` rates,
+    ``win_mean`` and ``win_fluct`` [F].  The whole run is one
+    ``fluid_scan`` call: one kernel launch on the card."""
     # the reference's initial state (fluid_jax.fluid_run)
     out = fluid_scan(M, line, rtt0, size, bw, line * rtt0, torch.ones_like(line),
                      torch.zeros_like(line), torch.zeros_like(bw),
-                     dt=dt, steps=steps, g=g, ecn_k=ecn_k, mss=mss)
-    return {"rates": out["rates"], "delivered": out["delivered"], "queues": out["queues"],
-            "rate_hist": out["rate_hist"], "queue_hist": out["queue_hist"]}
+                     dt=dt, steps=steps, g=g, ecn_k=ecn_k, mss=mss, window=window)
+    keys = ("rates", "delivered", "queues", "rate_hist", "queue_hist")
+    return {k: out[k] for k in keys + (("win_mean", "win_fluct") if window else ())}
 
 
 def _t_conv(hist: torch.Tensor, w: int, dt: float, steps: int) -> float:
@@ -113,25 +116,24 @@ def fluid_converged_rates(scn: FluidScenario, dt: float | None = None,
     # transient solve: rates are the question, so flows are unbounded here
     # (completion handling stays with the caller)
     unbounded = np.full_like(scn.size, np.inf)
-    out = fluid_run(_f32(scn.incidence, dev), _f32(scn.line_rate, dev),
-                    _f32(scn.base_rtt, dev), _f32(unbounded, dev),
-                    _f32(scn.link_bw, dev), dt, steps, ecn_k=scn.ecn_k, mss=scn.mss)
-    hist = out["rate_hist"]                            # [steps, F]
     w = max(8, steps // 10)
     # atol=0 and positive rates (R2 >= mss/rtt for unbounded flows): the
-    # kernel's 1e-30 clamp and zero-row rule never differ from the
+    # detector's 1e-30 clamp and zero-row rule never differ from the
     # reference's numpy (1e-9 clamp, inf for a zero row) here
-    fluct, mean = steady_scan(hist.T, w)
-    return {"rates": mean, "fluct": fluct, "t_conv": _t_conv(hist, w, dt, steps),
-            "hist": hist}
+    out = fluid_run(_f32(scn.incidence, dev), _f32(scn.line_rate, dev),
+                    _f32(scn.base_rtt, dev), _f32(unbounded, dev),
+                    _f32(scn.link_bw, dev), dt, steps, ecn_k=scn.ecn_k, mss=scn.mss, window=w)
+    hist = out["rate_hist"]                            # [steps, F]
+    return {"rates": out["win_mean"], "fluct": out["win_fluct"],
+            "t_conv": _t_conv(hist, w, dt, steps), "hist": hist}
 
 
 def sweep(scenarios: list[FluidScenario], dt: float, steps: int,
-          device: str | torch.device | None = None):
+          device: str | torch.device | None = None, window: int | None = None):
     """Multi-experiment parallelism: one batched run over the scenarios,
     padded to a common [F, L] (padded flows idle at size 0, padded links
     carry 1e12 B/s).  Uses the default ``ecn_k``/``mss``, as the
-    reference's vmapped sweep does."""
+    reference's vmapped sweep does; ``window`` as in :func:`fluid_run`."""
     dev = resolve_device(device)
     F = max(s.incidence.shape[0] for s in scenarios)
     L = max(s.incidence.shape[1] for s in scenarios)
@@ -149,7 +151,7 @@ def sweep(scenarios: list[FluidScenario], dt: float, steps: int,
 
     Ms, lines, rtts, sizes, bws = (_f32(np.stack(x), dev) for x in
                                    zip(*[pad(s) for s in scenarios]))
-    return fluid_run(Ms, lines, rtts, sizes, bws, dt, steps)
+    return fluid_run(Ms, lines, rtts, sizes, bws, dt, steps, window=window)
 
 
 def sweep_converged_rates(scenarios: list[FluidScenario], dt: float = 1e-5,
@@ -165,9 +167,8 @@ def sweep_converged_rates(scenarios: list[FluidScenario], dt: float = 1e-5,
         scenarios = [dataclasses.replace(
             s, size=np.full_like(np.asarray(s.size, np.float64), np.inf))
             for s in scenarios]
-    out = sweep(scenarios, dt=dt, steps=steps, device=device)
     w = window if window is not None else max(8, steps // 10)
+    out = sweep(scenarios, dt=dt, steps=steps, device=device, window=w)
     # padded rows are all-zero series, sliced off below
-    _, means = steady_scan(out["rate_hist"].transpose(1, 2), w)   # [B, F]
-    means = means.cpu()
+    means = out["win_mean"].cpu()                                  # [B, F]
     return [means[i, :s.incidence.shape[0]] for i, s in enumerate(scenarios)]

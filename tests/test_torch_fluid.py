@@ -13,11 +13,12 @@ import torch
 from repro.api import run as ref_run
 from repro.api import run_many as ref_run_many
 from repro.api.scenario import training_scenario as ref_training_scenario
+from repro.kernels.steady_scan.ref import steady_scan_ref
 from repro.net import fluid_jax
 from repro.net.topology import leaf_spine_clos as ref_clos
 from repro_torch.api import Scenario, available_backends, run, run_many
 from repro_torch.kernels.cca_step import fluid_scan, fluid_scan_plain
-from repro_torch.kernels.steady_scan import steady_scan
+from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 from repro_torch.net import fluid
 from repro_torch.net.topology import leaf_spine_clos
 from test_api import wave_scenario
@@ -101,6 +102,41 @@ def test_fluid_scan_plain_matches_reference_fluid_run(use_kernel, batch):
                                        rtol=RTOL, atol=atol, err_msg=k)
     done = port["delivered"] >= t["size"]
     assert done.any() and not done.all()             # some flows finished, not all
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_fluid_scan_window_matches_reference_detector(batch):
+    """``fluid_scan(..., window=w)`` on the CPU against the JAX
+    ``steady_scan_ref`` over the JAX ``fluid_run``'s rate history, at the
+    histories' bar (atol 1e-6 on the fluctuation, as
+    ``test_fluid_converged_rates_match_reference_and_fair_share``)."""
+    dt, steps, w = 1e-5, 200, 20
+    a = _scan_arrays(20, 12, batch, seed=5)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    line, bw = t["line"], t["bw"]
+    port = fluid_scan(t["M"], line, t["rtt0"], t["size"], bw, line * t["rtt0"],
+                      torch.ones_like(line), torch.zeros_like(line), torch.zeros_like(bw),
+                      dt=dt, steps=steps, window=w)
+    fl, mn = steady_scan_plain(port["rate_hist"].transpose(-1, -2), w)
+    assert torch.equal(port["win_mean"], mn) and torch.equal(port["win_fluct"], fl)
+    for i in np.ndindex(*batch):
+        ref = fluid_jax.fluid_run(*(jnp.asarray(a[k][i]) for k in ("M", "line", "rtt0",
+                                                                     "size", "bw")), dt, steps)
+        ref_fl, ref_mn = steady_scan_ref(jnp.asarray(ref["rate_hist"]).T, w)
+        np.testing.assert_allclose(port["win_mean"][i].numpy(), np.asarray(ref_mn), rtol=RTOL)
+        np.testing.assert_allclose(port["win_fluct"][i].numpy(), np.asarray(ref_fl),
+                                   rtol=RTOL, atol=1e-6)
+
+
+def test_fluid_run_returns_the_window_stats_only_when_asked():
+    a = {k: torch.from_numpy(v) for k, v in _scan_arrays(16, 9).items()}
+    args = (a["M"], a["line"], a["rtt0"], a["size"], a["bw"], 1e-5, 50)
+    assert "win_mean" not in fluid.fluid_run(*args)
+    out = fluid.fluid_run(*args, window=10)
+    assert set(out) == {"rates", "delivered", "queues", "rate_hist", "queue_hist",
+                        "win_mean", "win_fluct"}
+    fl, mn = steady_scan_plain(out["rate_hist"].T, 10)
+    assert torch.equal(out["win_mean"], mn) and torch.equal(out["win_fluct"], fl)
 
 
 def test_fluid_run_on_cpu_is_the_plain_scan():

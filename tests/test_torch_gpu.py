@@ -21,6 +21,7 @@ from repro_torch.kernels.cca_step.ops import workspace_bytes
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_arrays,
                                         maxmin_rates_torch)
+from repro_torch.kernels.maxmin.ops import plan
 from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 from repro_torch.launch import serve
 from repro_torch.models.api import build_model
@@ -104,6 +105,37 @@ def test_fluid_scan_kernel_matches_plain(cuda, F, L, B, steps):
     _assert_scan_close(out, ref)
 
 
+@pytest.mark.parametrize("steps", [1, 200])
+@pytest.mark.parametrize("F,L,B", [(1, 1, None), (64, 64, None), (129, 96, None),
+                                   (1024, 400, None), (100, 40, 16), (4096, 2048, None)])
+def test_fluid_scan_window_is_bit_equal_to_steady_scan(cuda, F, L, B, steps):
+    """The scan's fused detector against the stand-alone kernel (K3) over
+    the scan's own rate history, at every scan case: bit for bit, and the
+    window leaves the scan's other outputs as they were."""
+    a = _cca_inputs(F, L, batch=(B,) if B else (), device=cuda)
+    args = [a[k] for k in SCAN_KEYS]
+    w = max(1, steps // 10)
+    launches = fluid_scan.launches, steady_scan.launches
+    out = fluid_scan(*args, dt=1e-5, steps=steps, window=w)
+    assert (fluid_scan.launches, steady_scan.launches) == (launches[0] + 1, launches[1])
+    fl, mn = steady_scan(out["rate_hist"].transpose(-1, -2), w)
+    torch.cuda.synchronize()
+    assert torch.equal(out["win_mean"], mn) and torch.equal(out["win_fluct"], fl)
+    bare = fluid_scan(*args, dt=1e-5, steps=steps)
+    for k, v in bare.items():
+        assert torch.equal(out[k], v), k
+
+
+def test_fluid_scan_window_dead_band_on_card(cuda):
+    a = _cca_inputs(300, 120, batch=(2,), device=cuda)
+    a["size"][:, :50] = 0.0                          # finished flows: rates pinned at 0
+    args = [a[k] for k in SCAN_KEYS]
+    out = fluid_scan(*args, dt=1e-5, steps=100, window=30, atol=1e3)
+    fl, mn = steady_scan(out["rate_hist"].transpose(-1, -2), 30, atol=1e3)
+    assert torch.equal(out["win_mean"], mn) and torch.equal(out["win_fluct"], fl)
+    assert bool((out["win_fluct"][:, :50] == 0).all())
+
+
 def test_fluid_scan_kernel_is_deterministic_and_steps_zero_launches_nothing(cuda):
     a = _cca_inputs(300, 120, batch=(3,), device=cuda)
     args = [a[k] for k in SCAN_KEYS]
@@ -174,7 +206,8 @@ def test_run_on_card_goes_through_the_kernels(cuda):
     n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     card = run(scn)                                  # the card is the default
-    assert (fluid_scan.launches, steady_scan.launches) == (n_phases, n_phases)
+    # one scan per phase, its steady detector fused into it
+    assert (fluid_scan.launches, steady_scan.launches) == (n_phases, 0)
     assert cca_step.launches == 0
     assert card.extras["device"] == torch.cuda.get_device_name(0)
     _close(card, run(scn, device="cpu"))
@@ -187,7 +220,7 @@ def test_run_many_on_card_is_one_batched_run(cuda):
         for i in range(4)]
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     card = run_many(scns, steps=120)
-    assert (fluid_scan.launches, steady_scan.launches) == (1, 1)
+    assert (fluid_scan.launches, steady_scan.launches) == (1, 0)
     assert cca_step.launches == 0
     for a, b in zip(card, run_many(scns, steps=120, device="cpu")):
         _close(a, b)
@@ -201,14 +234,28 @@ def _maxmin_inputs(F, L, k):
     return links, off, bw
 
 
-@pytest.mark.parametrize("F,L,k", [(1, 1, 1), (7, 5, 2), (128, 192, 3),
-                                   (1000, 37, 4), (10_000, 128, 3), (300, 2100, 6)])
-def test_maxmin_kernel_bit_equal_to_plain(cuda, F, L, k):
+def _maxmin_dense(F, L, k, device):
     links, off, bw = _maxmin_inputs(F, L, k)
-    inc = torch.zeros(F, L, device=cuda)
-    inc.view(-1)[torch.as_tensor(np.repeat(np.arange(F), k) * L + links, device=cuda)] = 1.0
-    cap = torch.tensor(bw, dtype=torch.float32, device=cuda)
+    inc = torch.zeros(F, L, device=device)
+    inc.view(-1)[torch.as_tensor(np.repeat(np.arange(F), k) * L + links, device=device)] = 1.0
+    cap = torch.tensor(bw, dtype=torch.float32, device=device)
     cap[0] = 0.0                                       # a zero-bandwidth link
+    return inc, cap
+
+
+# (F, L, links a flow, regime, kernels a solve): moe@1024's largest solve is
+# 8064 x 2096; 16384 x 2048's masks (4 MB) exceed a 16-CTA cluster's shared
+# memory, so it runs on the cooperative grid.  L % 4 != 0 takes the pack's
+# 4-byte loads, in both regimes.
+@pytest.mark.parametrize("F,L,k,regime,kernels", [
+    (1, 1, 1, "cluster", 1), (7, 5, 2, "cluster", 1), (64, 64, 2, "cluster", 1),
+    (128, 192, 3, "cluster", 2), (1000, 37, 4, "cluster", 2), (10_000, 128, 3, "cluster", 2),
+    (300, 2100, 6, "cluster", 2),
+    (8064, 2096, 4, "cluster", 2), (16_384, 2048, 4, "grid", 1), (16_384, 2047, 4, "grid", 1)])
+def test_maxmin_kernel_bit_equal_to_plain(cuda, F, L, k, regime, kernels):
+    inc, cap = _maxmin_dense(F, L, k, cuda)
+    how = plan(F, L)
+    assert (how["regime"], how["kernels"]) == (regime, kernels)
     launches = maxmin.launches
     got, rounds = maxmin(inc, cap, with_rounds=True)
     want, want_rounds = maxmin_plain(inc, cap, with_rounds=True)
@@ -216,6 +263,35 @@ def test_maxmin_kernel_bit_equal_to_plain(cuda, F, L, k):
     assert maxmin.launches == launches + 1
     assert torch.equal(got, want)
     assert int(rounds) == int(want_rounds) <= L
+
+
+# Past about 19 000 links a block's shared memory no longer holds the grid's
+# link replica (12 L bytes), and the grid keeps the link state in global
+# memory: the largest L of the first form and the smallest of the second.
+@pytest.mark.parametrize("L,global_links", [(19_000, False), (19_200, True), (20_000, True)])
+def test_maxmin_grid_link_state_beyond_shared_memory(cuda, L, global_links):
+    F = 512
+    inc, cap = _maxmin_dense(F, L, 3, cuda)
+    how = plan(F, L)
+    assert (how["regime"], how["global_links"]) == ("grid", global_links)
+    got, rounds = maxmin(inc, cap, with_rounds=True)
+    want, want_rounds = maxmin_plain(inc, cap, with_rounds=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(rounds) == int(want_rounds) <= L
+
+
+def test_maxmin_kernel_refuses_a_non_binary_incidence_on_card(cuda):
+    inc = torch.tensor([[1, .5], [0, 1], [1, 1]], device=cuda)
+    cap = torch.tensor([10.0, 6.0], device=cuda)
+    for solve in (maxmin, maxmin_plain):
+        with pytest.raises(ValueError, match="0/1 incidence"):
+            solve(inc, cap)
+    for F, L in ((10_000, 128), (16_384, 2048), (512, 20_000)):  # pack kernel's; grid's
+        big, cap = _maxmin_dense(F, L, 3, cuda)
+        big[F - 1, L - 1] = 2.0
+        with pytest.raises(ValueError, match="0/1 incidence"):
+            maxmin(big, cap)
 
 
 def test_maxmin_rates_torch_on_card_tracks_the_exact_solver(cuda):

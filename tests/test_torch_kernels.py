@@ -15,7 +15,7 @@ from repro.core.steady import fluctuation, fluctuation_batch
 from repro.kernels.cca_step.ref import cca_step_ref
 from repro.kernels.steady_scan.ref import steady_scan_ref
 from repro_torch.kernels.cca_step import cca_step, cca_step_plain, fluid_scan, fluid_scan_plain
-from repro_torch.kernels.steady_scan import steady_scan
+from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 
 RNG = np.random.default_rng(11)
 
@@ -173,6 +173,34 @@ def test_fluid_scan_refuses_bad_inputs():
         fluid_scan(args[0][0], *args[1:], dt=1e-5, steps=5)
     with pytest.raises(ValueError, match="steps must be"):
         fluid_scan(*args, dt=1e-5, steps=-1)
+
+
+@pytest.mark.parametrize("batch,steps,window,atol", [((), 60, 20, 0.0), ((3,), 60, 7, 0.0),
+                                                     ((), 1, 1, 0.0), ((2,), 40, 40, 1e9)])
+def test_fluid_scan_window_is_steady_scan_plain_over_its_history(batch, steps, window, atol):
+    """The fused detector's plain form: ``win_mean``/``win_fluct`` are
+    ``steady_scan_plain`` over the scan's own rate history, with or without
+    the history returned (atol 1e9 puts some flows in the dead band)."""
+    args = _scan_args(_cca_inputs(24, 10, batch))
+    out = fluid_scan(*args, dt=1e-5, steps=steps, window=window, atol=atol)
+    fl, mn = steady_scan_plain(out["rate_hist"].transpose(-1, -2), window, atol)
+    assert out["win_mean"].shape == (*batch, 24)
+    assert torch.equal(out["win_mean"], mn) and torch.equal(out["win_fluct"], fl)
+    bare = fluid_scan(*args, dt=1e-5, steps=steps, window=window, atol=atol, history=False)
+    assert bare["rate_hist"] is None and bare["queue_hist"] is None
+    for k in ("win_mean", "win_fluct", "rates", "queues"):
+        assert torch.equal(bare[k], out[k]), k
+    plain = fluid_scan(*args, dt=1e-5, steps=steps)
+    assert "win_mean" not in plain and torch.equal(plain["rate_hist"], out["rate_hist"])
+
+
+@pytest.mark.parametrize("steps,window", [(10, 0), (10, 11), (0, 1), (5, -2)])
+def test_fluid_scan_refuses_a_window_outside_the_steps(steps, window):
+    args = _scan_args(_cca_inputs(8, 4))
+    with pytest.raises(ValueError, match="window must be in"):
+        fluid_scan(*args, dt=1e-5, steps=steps, window=window)
+    with pytest.raises(ValueError, match="window must be in"):
+        fluid_scan_plain(*args, dt=1e-5, steps=steps, window=window)
 
 
 # --------------------------------------------------------------------- #

@@ -245,3 +245,109 @@ def test_maxmin_rates_torch_refuses_to_leave_the_card(monkeypatch):
     for impl in ("kernel", "ref"):
         with pytest.raises(RuntimeError, match="none is available"):
             maxmin_rates_torch(links, off, [1.0], impl=impl)
+
+
+# --------------------------------------------------------------------- #
+# the 0/1 contract, and the bit-packed rounds of the CUDA kernel
+# --------------------------------------------------------------------- #
+PROBE_INC = np.array([[1, .5], [0, 1], [1, 1]], np.float32)
+PROBE_CAP = np.array([10, 6], np.float32)
+
+
+@pytest.mark.parametrize("bad", [0.5, 2.0, -1.0, float("nan")])
+def test_dense_solvers_refuse_a_non_binary_incidence(bad):
+    """The reference's oracle weighs an entry by its value (2.4 for every
+    flow of the probe); the port's kernel holds the incidence as bits, so
+    both its versions refuse anything but 0/1, on the CPU as on the card."""
+    np.testing.assert_allclose(np.asarray(maxmin_ref(PROBE_INC, PROBE_CAP)), [2.4] * 3,
+                               rtol=1e-6)
+    inc = torch.from_numpy(PROBE_INC.copy())
+    inc[0, 1] = bad
+    cap = torch.from_numpy(PROBE_CAP)
+    for solve in (maxmin, maxmin_plain):
+        with pytest.raises(ValueError, match="0/1 incidence"):
+            solve(inc, cap)
+        with pytest.raises(ValueError, match="0/1 incidence"):
+            solve(inc, cap, with_rounds=True)
+
+
+BIG32 = np.float32(3e38)
+
+
+def _share(cap, users):
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(users > 0, cap / np.maximum(users, 1).astype(np.float32), BIG32)
+
+
+def bitpacked_rounds(inc: np.ndarray, cap: np.ndarray, ctas: int):
+    """numpy emulation of ``csrc/maxmin.cu``: the incidence packed into row
+    words (bit l % 32 of word l // 32, 4 ceil(L / 128) words a row), the
+    flows in ``ctas`` slices that each count the set bits of their newly
+    frozen rows as integers, and a replica of the link state updated from
+    the summed counts with float32 operations each rounded on its own.
+    Returns (rates, rounds)."""
+    F, L = inc.shape
+    WLp = 4 * -(-L // 128)
+    bits = np.zeros((F, 32 * WLp), bool)
+    bits[:, :L] = inc != 0
+    rows = np.packbits(bits.reshape(F, WLp, 32), axis=-1, bitorder="little").view("<u4")[..., 0]
+    n_f = -(-F // ctas)
+    slices = [slice(c * n_f, min(F, (c + 1) * n_f)) for c in range(ctas)]
+
+    def counts(flows):                    # each slice's integer counts, summed
+        per_cta = [np.unpackbits(rows[s][flows[s]].view(np.uint8), axis=-1,
+                                 bitorder="little")[:, :L].sum(0, dtype=np.int64)
+                   for s in slices]
+        return np.sum(per_cta, axis=0)
+
+    active = np.ones(F, bool)
+    rates = np.zeros(F, np.float32)
+    users = counts(active)
+    cap = cap.astype(np.float32).copy()
+    s = _share(cap, users).min()
+    rounds = 0
+    for _ in range(L):
+        if not s < BIG32:
+            break
+        rounds += 1
+        r = np.float32(max(s, np.float32(0.0)))
+        sat_bits = np.zeros(32 * WLp, bool)
+        sat_bits[:L] = (users > 0) & (_share(cap, users) <= s)
+        sat = np.packbits(sat_bits.reshape(WLp, 32), axis=-1, bitorder="little").view("<u4")[:, 0]
+        newly = active & ((rows & sat[None, :]) != 0).any(1)
+        rates[newly] = r
+        active &= ~newly
+        c = counts(newly)
+        hit = c != 0
+        cap[hit] = cap[hit] - (r * c[hit].astype(np.float32)).astype(np.float32)
+        users = users - c
+        s = _share(cap, users).min()
+    rates[active] = np.float32(1e12)
+    return rates, rounds
+
+
+def _emulation_agrees(inc, cap):
+    want, want_rounds = maxmin_plain(torch.from_numpy(inc), torch.from_numpy(cap),
+                                     with_rounds=True)
+    for ctas in (1, 3, 16):
+        got, rounds = bitpacked_rounds(inc, cap, ctas)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want.numpy())
+        assert rounds == int(want_rounds)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bitpacked_rounds_bit_equal_to_plain(seed):
+    paths, link_bw = random_case(random.Random(seed), simple=True)
+    _emulation_agrees(*_dense(paths, link_bw))
+
+
+def test_bitpacked_rounds_bit_equal_to_plain_at_10k_flows():
+    """The ceiling case, 118 rounds: where one fused multiply-add in the
+    capacity update would move 464 of the 10 000 rates."""
+    rng = np.random.default_rng(11)
+    F, L = 10_000, 128
+    links = rng.random((F, L)).argpartition(3, axis=1)[:, :3].astype(np.int64).ravel()
+    off = np.arange(0, 3 * (F + 1), 3, dtype=np.int64)
+    inc, cap = ops.incidence_from_csr(links, off, rng.uniform(1e9, 1e10, L))
+    _emulation_agrees(inc, cap)
