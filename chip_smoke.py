@@ -46,7 +46,18 @@ Phases, one JSON line each:
             recorded solve is replayed on the card through
             ``maxmin_rates_torch(..., impl="kernel")``, held to the exact
             rates at rtol 1e-4, with one ``maxmin`` launch per solve;
-8. serve    ``repro_torch.launch.serve.generate`` on granite-3-2b at full
+8. packet   the host-only event simulators beside the card's fluid engine:
+            ``compare(gpt@128 at scale 1/64, backends=("packet", "wormhole",
+            "fluid", "analytic"))`` with each backend's events, wall, speedups
+            and FCT errors against the ``packet`` oracle (wormhole held to the
+            reference's bars, mean under 1 % and max under 5 %; fluid, on the
+            card with one fluid_scan per phase, only to finite errors); then
+            ``wormhole`` on gpt@128 at ``scale=1.0`` (the paper's GPT-13B on
+            128 GPUs) with its kernel report and iteration time beside the
+            fluid and analytic ones; two identical wormhole runs with fresh
+            SimDBs, which must be bit-identical; and a warm two-run
+            ``run_many(..., shared_db=True)`` sweep;
+9. serve    ``repro_torch.launch.serve.generate`` on granite-3-2b at full
             width and depth in bf16 (seeded weights): batch 4, a 2048-token
             prompt through ``Model.prefill``, then 32 greedy tokens through
             ``Model.decode_step``; exactly 40 ``flash_attention`` launches in
@@ -96,6 +107,8 @@ K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # tests/test_kernels.py flas
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW = "granite-3-2b", 4, 2048, 32
 CONTINUATION_TOL = 2e-2               # tests/test_archs.py:125
 CARD_CPU_NORMWISE = 1e-3              # max|card - cpu| <= tol * max|cpu|, float32
+WORMHOLE_MEAN_ERR, WORMHOLE_MAX_ERR = 0.01, 0.05   # tests/test_wormhole.py:37-42
+PACKET_PHASE_WALL_S = 300             # the packet phase's whole wall, a guard on the time limit
 
 
 def emit(phase: str, **fields) -> None:
@@ -521,21 +534,25 @@ def flash_kernels(torch, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def finite_fcts(res) -> bool:
+    return bool(res.fcts) and all(np.isfinite(v) and v > 0 for v in res.fcts.values())
+
+
 def compare_results(a, b, what: str) -> dict:
     check(set(a.fcts) == set(b.fcts), f"{what}: flow sets differ")
     errs = [abs(a.fcts[k] - b.fcts[k]) / b.fcts[k] for k in b.fcts]
-    fin = all(np.isfinite(v) and v > 0 for v in a.fcts.values())
     it_err = abs(a.iteration_time - b.iteration_time) / b.iteration_time
-    check(fin, f"{what}: non-finite or non-positive FCTs")
+    check(finite_fcts(a), f"{what}: non-finite or non-positive FCTs")
     check(max(errs) <= E2E_RTOL and it_err <= E2E_RTOL,
           f"{what}: card vs CPU max FCT rel err {max(errs)}, iteration {it_err}")
     return dict(max_fct_rel_err=max(errs), iteration_rel_err=it_err)
 
 
-def phase_e2e(torch, scenarios, launches: dict) -> None:
+def phase_e2e(torch, scenarios, launches: dict) -> dict:
     from repro_torch.api import run
     from repro_torch.kernels.cca_step import cca_step, fluid_scan
     from repro_torch.kernels.steady_scan import steady_scan
+    iterations = {}
     for name, scn in scenarios.items():
         n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
         cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
@@ -564,9 +581,10 @@ def phase_e2e(torch, scenarios, launches: dict) -> None:
             row["cpu_wall_s"] = time.perf_counter() - t0
             row.update(compare_results(res, cpu, name))
         else:
-            check(all(np.isfinite(v) and v > 0 for v in res.fcts.values())
-                  and res.iteration_time > 0, f"{name}: bad FCTs")
+            check(finite_fcts(res) and res.iteration_time > 0, f"{name}: bad FCTs")
         emit("e2e", **row)
+        iterations[name] = res.iteration_time
+    return iterations
 
 
 def phase_profile(torch, name: str, scn) -> None:
@@ -577,15 +595,15 @@ def phase_profile(torch, name: str, scn) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import run
-    run(scn)
+    run(scn, backend="fluid")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(scn)
+    run(scn, backend="fluid")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(scn)
+        run(scn, backend="fluid")
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
@@ -757,9 +775,10 @@ def maxmin_kernels(torch, recorded: dict, rows: dict) -> None:
         rows[("maxmin", name)] = row
 
 
-def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> None:
+def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> dict:
     from repro_torch.api import run
     from repro_torch.kernels.maxmin import maxmin, maxmin_rates_arrays, maxmin_rates_torch
+    iterations = {}
     for name, scn in scenarios.items():
         t0 = time.perf_counter()
         res = run(scn, backend="analytic")
@@ -770,8 +789,7 @@ def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> None:
               and sim.events_processed == res.events_processed
               and rec["driver"].iteration_time == res.iteration_time,
               f"{name}: the hand-built analytic run differs from the engine's")
-        check(all(np.isfinite(v) and v > 0 for v in res.fcts.values())
-              and res.iteration_time > 0, f"{name}: bad analytic FCTs")
+        check(finite_fcts(res) and res.iteration_time > 0, f"{name}: bad analytic FCTs")
         solves = rec["solves"]
         worst, t_replay = 0.0, 0.0
         maxmin.launches = 0
@@ -793,6 +811,83 @@ def phase_analytic(torch, scenarios, recorded: dict, launches: dict) -> None:
              engine_wall_s=res.wall_time, hand_built_wall_s=rec["wall"],
              iteration_time=res.iteration_time, largest_solve_flows=len(largest[1]) - 1,
              replay_wall_s=t_replay, worst_k2_rel_err_vs_exact=worst, tolerance=K2_RTOL)
+        iterations[name] = res.iteration_time
+    return iterations
+
+
+def same_run(a, b) -> bool:
+    """Two runs of one deterministic simulation, bar the wall clock."""
+    return (a.fcts == b.fcts and list(a.fcts) == list(b.fcts)
+            and a.events_processed == b.events_processed
+            and a.iteration_time == b.iteration_time
+            and a.kernel_report == b.kernel_report)
+
+
+def phase_packet(torch, launches: dict, fluid_iters: dict, analytic_iters: dict) -> None:
+    """The packet oracle and the Wormhole kernel on the card machine's CPU,
+    beside the fluid engine on the card.  Event counts are this machine's
+    own: they are held to the reference's by the CPU tests, not here."""
+    from repro_torch.api import SimDB, compare, run, run_many, summarize_pair, training_scenario
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
+    from repro_torch.kernels.steady_scan import steady_scan
+    t_phase = time.perf_counter()
+    scn = training_scenario(n_gpus=128, scale=1 / 64)
+    n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
+    cmp = compare(scn, backends=("packet", "wormhole", "fluid", "analytic"))
+    torch.cuda.synchronize()
+    counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
+                  cca_step=cca_step.launches)
+    check(counts == dict(fluid_scan=n_phases, steady_scan=0, cca_step=0),
+          f"compare: launches {counts}, expected one fluid_scan per phase ({n_phases})")
+    launches["fluid_scan"] += counts["fluid_scan"]
+    base = cmp["packet"]
+    rows = {}
+    for b, r in cmp.results.items():
+        check(finite_fcts(r) and set(r.fcts) == set(base.fcts),
+              f"compare: {b} has bad FCTs or another flow set than packet")
+        row = dict(events=r.events_processed, wall_s=r.wall_time,
+                   iteration_time=r.iteration_time)
+        if b != cmp.baseline:
+            s = summarize_pair(base, r)
+            row.update(event_speedup=s["event_speedup"], wall_speedup=s["wall_speedup"],
+                       fct_err_mean=s["fct_err_mean"], fct_err_max=s["fct_err_max"])
+        rows[b] = row
+    wh, fl = rows["wormhole"], rows["fluid"]
+    check(wh["fct_err_mean"] < WORMHOLE_MEAN_ERR and wh["fct_err_max"] < WORMHOLE_MAX_ERR,
+          f"wormhole vs packet: mean FCT err {wh['fct_err_mean']}, max {wh['fct_err_max']}")
+    check(np.isfinite(fl["fct_err_mean"]) and np.isfinite(fl["fct_err_max"]),
+          f"fluid vs packet: FCT error not finite: {fl}")
+    rows["fluid"]["device"] = cmp["fluid"].extras["device"]
+    emit("packet", scenario=scn.name, what="compare", host="the card machine's CPU",
+         flows=len(base.fcts), phases_with_flows=n_phases, launches=counts, backends=rows,
+         bars=dict(wormhole_mean=WORMHOLE_MEAN_ERR, wormhole_max=WORMHOLE_MAX_ERR))
+
+    full = training_scenario(n_gpus=128, scale=1.0)
+    res = run(full, backend="wormhole")
+    check(finite_fcts(res) and res.iteration_time > 0, "wormhole at scale 1.0: bad FCTs")
+    rep = res.kernel_report
+    emit("packet", scenario=full.name, what="wormhole at full message sizes",
+         host="the card machine's CPU", flows=len(res.fcts), events=res.events_processed,
+         wall_s=res.wall_time, parks=rep["parks"], replays=rep["replays"],
+         skip_backs=rep["skip_backs"], est_events_skipped=rep["est_events_skipped"],
+         db_hits=rep["db_hits"], db_lookups=rep["db_lookups"],
+         iteration_time=res.iteration_time, fluid_iteration_time=fluid_iters["gpt@128"],
+         analytic_iteration_time=analytic_iters["gpt@128"])
+
+    a = run(scn, backend="wormhole", db=SimDB())
+    b = run(scn, backend="wormhole", db=SimDB())
+    check(same_run(a, b), "two identical wormhole runs differ")
+    warm = scn.variant(name=f"{scn.name}-x1.05", size_scale=1.05)
+    sweep = run_many([scn, warm], backend="wormhole", shared_db=True)
+    check(all(finite_fcts(r) for r in sweep), "warm sweep: bad FCTs")
+    wall = time.perf_counter() - t_phase
+    emit("packet", what="determinism and warm sweep", repeat_bit_identical=True,
+         repeat_events=a.events_processed, repeat_walls_s=[a.wall_time, b.wall_time],
+         sweep_events=[r.events_processed for r in sweep],
+         sweep_run_db_hits=[r.kernel_report["run_db_hits"] for r in sweep],
+         sweep_walls_s=[r.wall_time for r in sweep], phase_wall_s=wall)
+    check(wall < PACKET_PHASE_WALL_S, f"packet phase took {wall} s")
 
 
 def normwise(a, b) -> dict:
@@ -996,10 +1091,11 @@ def main() -> int:
     flash_kernels(torch, rows)
 
     launches = {"fluid_scan": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0}
-    phase_e2e(torch, scenarios, launches)
+    fluid_iters = phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
-    phase_analytic(torch, scenarios, recorded, launches)
+    analytic_iters = phase_analytic(torch, scenarios, recorded, launches)
+    phase_packet(torch, launches, fluid_iters, analytic_iters)
     phase_serve(torch, launches)
 
     k1 = rows[("fluid_scan", "moe@1024")]

@@ -3,6 +3,9 @@
 The port has its own registry, under the reference's engine names, and no
 run store: nothing keys a result by backend name across the two packages.
 
+    packet    per-packet DES oracle (the ns-3 stand-in), on the host
+    wormhole  the same oracle under the memoizing/fast-forwarding kernel,
+              on the host
     fluid     DCTCP fluid rate dynamics through the hand-written
               ``fluid_scan`` kernel (a phase's control steps and its steady
               detector in one launch; batched sweeps in ``run_batch``)
@@ -11,7 +14,9 @@ run store: nothing keys a result by backend name across the two packages.
 
 The fluid engine runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no ``device``, ``run`` raises.  The
-analytic engine takes no ``device``: it runs on the host in both packages.
+packet, wormhole and analytic engines take no ``device``: they are event
+simulators on the host in both packages, and their results are the
+reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -21,10 +26,13 @@ import time
 from repro_torch.api.analytic import AnalyticSim
 from repro_torch.api.results import RunResult
 from repro_torch.api.scenario import Scenario
+from repro_torch.core.memo import SimDB
+from repro_torch.core.wormhole import WormholeConfig, WormholeKernel
 from repro_torch.device import device_name, resolve_device
 from repro_torch.net import chaos as chaos_mod
 from repro_torch.net.fluid import (FluidScenario, fluid_converged_rates,
                                    sweep_converged_rates)
+from repro_torch.net.packet_sim import PacketSim
 from repro_torch.workload.driver import WorkloadDriver
 
 _REGISTRY: dict[str, type] = {}
@@ -56,10 +64,14 @@ def get_engine(name: str) -> Engine:
 class Engine:
     """Backend protocol: evaluate scenarios into :class:`RunResult`s.
 
+    ``uses_db = True`` declares that ``run`` accepts a ``db=`` SimDB (the
+    seam ``run_many(shared_db=True)`` threads one memo DB through).
+
     ``option_names`` declares the opts ``run`` accepts; :meth:`check_opts`
     rejects anything else with one error naming the accepted set, so a
     typoed opt fails loudly instead of being swallowed by ``**opts``."""
     name = "abstract"
+    uses_db = False
     option_names: tuple[str, ...] = ()
 
     def check_opts(self, opts: dict) -> None:
@@ -161,7 +173,7 @@ class FluidEngine(Engine):
 
 
 # ---------------------------------------------------------------------- #
-# analytic backend (flow-level max-min fair sharing)
+# event simulators driven by the workload layer (packet, wormhole, analytic)
 # ---------------------------------------------------------------------- #
 def _drive(scenario: Scenario, sim) -> WorkloadDriver | None:
     if scenario.kind == "workload":
@@ -178,8 +190,9 @@ def _drive(scenario: Scenario, sim) -> WorkloadDriver | None:
     return None
 
 
-def _collect(backend: str, scenario: Scenario, sim, driver,
-             wall: float) -> RunResult:
+def _collect(backend: str, scenario: Scenario, sim, driver, wall: float,
+             kernel_report: dict | None = None,
+             record_rtt=()) -> RunResult:
     if driver is not None:
         assert driver.finished, f"{scenario.name}: program did not finish"
         iteration = driver.iteration_time
@@ -188,13 +201,105 @@ def _collect(backend: str, scenario: Scenario, sim, driver,
                      - min(r.start for r in sim.results.values()))
     else:
         iteration = None
+    extras = {}
+    if record_rtt:
+        extras["rtt_samples"] = {fid: list(sim.flows[fid].rtt_samples)
+                                 for fid in record_rtt}
     return RunResult(
         backend=backend, scenario=scenario.name,
         fcts={fid: r.fct for fid, r in sim.results.items()},
         flow_bytes={fid: r.bytes for fid, r in sim.results.items()},
         tags={fid: r.tag for fid, r in sim.results.items()},
         iteration_time=iteration, events_processed=sim.events_processed,
-        wall_time=wall)
+        wall_time=wall, kernel_report=kernel_report, extras=extras)
+
+
+@register_engine("packet")
+class PacketEngine(Engine):
+    """Baseline per-packet DES — the accuracy oracle everything else is
+    judged against.  It runs on the host (its per-packet Python loop is the
+    reference's, event for event) and takes no ``device``.
+
+    opts (shared by the wormhole subclass):
+      parallel       None or ``"none"`` (the single-heap serial loop); the
+                     reference's ``"partitions"`` (partition-sharded loop)
+                     raises NotImplementedError until that loop is ported
+      intra_workers  1; more workers belong to the sharded loop and raise
+                     NotImplementedError
+    """
+    option_names = ("intra_workers", "parallel", "record_rtt", "until",
+                    "validate")
+
+    def _make_kernel(self, scenario: Scenario, **opts):
+        return None, None
+
+    def run(self, scenario: Scenario, record_rtt=(), until: float = float("inf"),
+            parallel: str | None = None, intra_workers: int = 1,
+            validate: bool = False, **opts) -> RunResult:
+        plan = chaos_mod.plan_for(scenario)
+        chaos_mod.check_backend(plan, self.name, intra_workers=intra_workers)
+        topo = scenario.build_topology()
+        kernel, report_fn = self._make_kernel(scenario, **opts)
+        if parallel not in (None, "none", "partitions"):
+            raise ValueError(
+                f"unknown parallel mode {parallel!r} (use 'partitions')")
+        if parallel == "partitions" or intra_workers > 1:
+            raise NotImplementedError(
+                f"parallel={parallel!r}, intra_workers={intra_workers}: the "
+                "partition-sharded event loop is not ported yet (ROADMAP.md "
+                "Queue 1, the sharded-loop item); use parallel=None")
+        if validate:
+            # silently running the serial loop would make the user believe
+            # the invariant checking was active
+            raise ValueError(
+                "intra_workers/validate require parallel='partitions'")
+        sim = PacketSim(topo, kernel=kernel, **scenario.sim)
+        sim.record_rtt_fids = set(record_rtt)
+        driver = _drive(scenario, sim)
+        if plan is not None and plan.has_link_events:
+            plan.install(sim)
+        t0 = time.perf_counter()
+        sim.run(until=until)
+        wall = time.perf_counter() - t0
+        return _collect(self.name, scenario, sim, driver, wall,
+                        kernel_report=report_fn() if report_fn else None,
+                        record_rtt=record_rtt)
+
+
+@register_engine("wormhole")
+class WormholeEngine(PacketEngine):
+    """Packet oracle + the Wormhole memoization/fast-forwarding kernel, on
+    the host.
+
+    opts:
+      config   WormholeConfig or dict merged over scenario.kernel
+      db       a SimDB to reuse across runs (cross-run warm cache, §6.1);
+               per-run hit/lookup deltas land in kernel_report["run_db_*"].
+               ``SimDB.load_or_new``/``save`` persist it in the reference's
+               JSON format, so either package warm-starts from the other's.
+    """
+    uses_db = True
+    option_names = PacketEngine.option_names + ("config", "db")
+
+    def run(self, scenario: Scenario, db: SimDB | None = None,
+            **opts) -> RunResult:
+        return super().run(scenario, db=db, **opts)
+
+    def _make_kernel(self, scenario: Scenario, config=None, db: SimDB | None = None,
+                     **opts):
+        if isinstance(config, WormholeConfig):
+            cfg = config
+        else:
+            cfg = WormholeConfig(**{**scenario.kernel, **(config or {})})
+        kernel = WormholeKernel(cfg, db=db)
+        hits0, lookups0 = kernel.db.hits, kernel.db.lookups
+
+        def report():
+            rep = kernel.report()
+            rep["run_db_hits"] = kernel.db.hits - hits0
+            rep["run_db_lookups"] = kernel.db.lookups - lookups0
+            return rep
+        return kernel, report
 
 
 @register_engine("analytic")

@@ -87,3 +87,62 @@ class RunResult:
             wall_time=float(d["wall_time"]),
             kernel_report=d.get("kernel_report"),
             extras=dict(d.get("extras", {})))
+
+
+@dataclasses.dataclass
+class Comparison:
+    """Per-backend speedup/accuracy table against a baseline backend."""
+    scenario: str
+    baseline: str
+    results: dict[str, RunResult]
+
+    def __getitem__(self, backend: str) -> RunResult:
+        return self.results[backend]
+
+    def rows(self) -> list[dict]:
+        base = self.results[self.baseline]
+        return [summarize_pair(base, r) for b, r in self.results.items()
+                if b != self.baseline]
+
+    def format(self) -> str:
+        base = self.results[self.baseline]
+        hdr = (f"{'backend':<10} {'events':>10} {'wall s':>8} {'ev x':>7} "
+               f"{'wall x':>7} {'fct err%':>9} {'max err%':>9} {'iter ms':>9}")
+        lines = [f"scenario {self.scenario!r}  (baseline: {self.baseline})", hdr,
+                 "-" * len(hdr)]
+        for b, r in self.results.items():
+            s = summarize_pair(base, r)
+            it = f"{r.iteration_time * 1e3:9.3f}" if r.iteration_time else " " * 9
+            if b == self.baseline:
+                lines.append(f"{b:<10} {r.events_processed:>10d} "
+                             f"{r.wall_time:8.2f} {'1.0':>7} {'1.0':>7} "
+                             f"{'-':>9} {'-':>9} {it}")
+            else:
+                lines.append(
+                    f"{b:<10} {r.events_processed:>10d} {r.wall_time:8.2f} "
+                    f"{s['event_speedup']:7.1f} {s['wall_speedup']:7.1f} "
+                    f"{100 * s['fct_err_mean']:9.3f} "
+                    f"{100 * s['fct_err_max']:9.3f} {it}")
+        return "\n".join(lines)
+
+    __str__ = format
+
+
+def summarize_pair(base: RunResult, other: RunResult) -> dict:
+    """Speedup / accuracy summary of ``other`` against baseline ``base`` —
+    the table quickstart, simulate_cluster and paper_figures all share."""
+    errs = other.fct_errors_vs(base)
+    out = {
+        "backend": other.backend,
+        "events": other.events_processed,
+        "wall": other.wall_time,
+        "event_speedup": base.events_processed / max(other.events_processed, 1),
+        "wall_speedup": base.wall_time / max(other.wall_time, 1e-9),
+        "fct_err_mean": float(errs.mean()) if errs.size else float("nan"),
+        "fct_err_max": float(errs.max()) if errs.size else float("nan"),
+        "fct_err_p99": float(np.quantile(errs, 0.99)) if errs.size else float("nan"),
+    }
+    if base.iteration_time and other.iteration_time is not None:
+        out["iter_err"] = (abs(other.iteration_time - base.iteration_time)
+                           / base.iteration_time)
+    return out

@@ -1,24 +1,30 @@
 """Deterministic chaos: declarative, seeded perturbation injectors.
 
-Copy of ``repro.net.chaos`` reduced to what the flow-level engines use.
+Copy of ``repro.net.chaos``, which the port may not import.  The port runs
+the serial packet loop only: the partition-sharded loop named below is not
+ported yet.
+
 ``Scenario.chaos`` is a list of plain dicts that JSON round-trips with
-the scenario, and every engine derives the *same* perturbations from the
-same declaration:
+the scenario, so perturbations are part of the content-addressed run key
+and every engine derives the *same* perturbations from the same
+declaration:
 
 * phase-level injectors (``mice``, ``straggler``) are expanded by
   ``Scenario.build_phases`` into the phase DAG itself — dep-free mouse
-  phases with ``compute=arrival_time``, per-rank compute multipliers — so
-  the port's fluid engine drives the identical perturbed program the
-  reference engines drive;
+  phases with ``compute=arrival_time``, per-rank compute multipliers —
+  so packet, wormhole, fluid, and analytic backends all drive identical
+  perturbed programs;
 * link-level injectors (``degrade_link``, ``link_flap``, ``link_down``)
-  retarget port capacities mid-run on the packet family, which is not
-  ported yet.  They are parsed and validated here, and the flow-level
-  backends refuse them: they have no port queues to degrade, and silently
-  dropping a declared perturbation would be worse.
+  retarget port capacities mid-run.  They install as CALL events on the
+  packet-family simulators (the sharded loop executes CALLs at global
+  barriers, so every lane observes the change atomically) and notify the
+  kernel via ``SimKernel.on_chaos`` — wormhole skips affected parked
+  partitions back to packet fidelity, hybrid promotes affected flow
+  lanes.  Flow-level backends refuse them: they have no port queues to
+  degrade, and silently dropping a declared perturbation would be worse.
 
 Injector dicts (all randomness comes from ``numpy.random.default_rng``
-seeded with the injector's own ``seed``, so the draws are the reference's
-draws):
+seeded with the injector's own ``seed`` — runs are bit-reproducible):
 
     {"kind": "mice", "seed": 0, "rate": 2000.0, "size": 20000.0,
      "start": 0.0, "duration": 0.01, "cca": "dctcp"}
@@ -31,11 +37,21 @@ draws):
         ``ranks``, or ``count`` ranks drawn without replacement.
 
     {"kind": "degrade_link", "link": 12, "t": 0.002, "factor": 0.25}
-    {"kind": "link_flap", "link": 12, "t_down": 0.002, "t_up": 0.004}
-    {"kind": "link_down", "link": 12, "t": 0.002}
-        Link-level injectors (packet family only).
+        Port 12 drops to 25% capacity at t=2ms; optional ``t_end``
+        restores full capacity.
 
-An empty injector list is the identity: no phases are added.
+    {"kind": "link_flap", "link": 12, "t_down": 0.002, "t_up": 0.004}
+        Capacity collapses to ``DOWN_FACTOR`` x base (arrivals overflow
+        the port buffer and drop — the packet-level signature of a dead
+        port) and recovers at ``t_up``.
+
+    {"kind": "link_down", "link": 12, "t": 0.002}
+        A flap that never recovers; pair with an ``until=`` horizon or a
+        workload whose remaining flows avoid the port.
+
+An empty injector list is the identity: no phases are added and nothing
+is installed, so ``chaos=[]`` scenarios are bit-identical to pre-chaos
+runs.
 """
 from __future__ import annotations
 
@@ -184,6 +200,54 @@ class ChaosPlan:
                 k += 1
         return phases
 
+    # ---------------- link-level injectors ---------------- #
+
+    @property
+    def has_link_events(self) -> bool:
+        return bool(self.link_events)
+
+    def install(self, sim) -> None:
+        """Arm the link events on a packet-family simulator as CALL events.
+
+        The hot loops hoist ``_link_bw``/``busy_until`` as the same mutable
+        lists, and CALL payloads run with counters flushed, so in-place item
+        assignment from the closure is immediately visible — no special
+        state on the simulator.
+        """
+        base = [float(bw) for bw in sim._link_bw]
+        for ev in self.link_events:
+            if not 0 <= ev.link < len(base):
+                raise ValueError(f"chaos link {ev.link} out of range "
+                                 f"(topology has {len(base)} ports)")
+        for ev in self.link_events:
+            sim.call_at(ev.t, _LinkSet(sim, ev.link, base[ev.link] * ev.factor))
+
+
+class _LinkSet:
+    """CALL payload: retarget one port's capacity, preserving the queued
+    backlog in bytes, then tell the kernel which port changed."""
+
+    __slots__ = ("sim", "link", "bw")
+
+    def __init__(self, sim, link: int, bw: float) -> None:
+        self.sim = sim
+        self.link = link
+        self.bw = bw
+
+    def __call__(self, now: float) -> None:
+        sim = self.sim
+        lid = self.link
+        old = sim._link_bw[lid]
+        if old == self.bw:
+            return
+        busy = sim.busy_until[lid]
+        if busy > now:
+            # (busy - now) * old bytes sit queued on the port; re-express
+            # that backlog at the new drain rate
+            sim.busy_until[lid] = now + (busy - now) * (old / self.bw)
+        sim._link_bw[lid] = self.bw
+        sim.kernel.on_chaos(now, (lid,))
+
 
 def plan_for(scenario) -> ChaosPlan | None:
     """Parse a scenario's chaos declaration (None when it has none)."""
@@ -191,14 +255,21 @@ def plan_for(scenario) -> ChaosPlan | None:
     return ChaosPlan.parse(chaos) if chaos else None
 
 
-def check_backend(plan: ChaosPlan | None, backend: str) -> None:
-    """Refuse link chaos on a flow-level backend, which has no port queues
-    to degrade."""
-    if plan is not None and plan.link_events and backend in FLOW_LEVEL_BACKENDS:
+def check_backend(plan: ChaosPlan | None, backend: str,
+                  intra_workers: int = 1) -> None:
+    """Refuse configurations whose engine cannot honor declared link chaos."""
+    if plan is None or not plan.link_events:
+        return
+    if backend in FLOW_LEVEL_BACKENDS:
         raise ValueError(
             f"backend {backend!r} has no port queues to degrade — link chaos "
             "(degrade_link/link_flap/link_down) needs a packet-family "
             "backend (packet/wormhole/hybrid)")
+    if intra_workers > 1:
+        raise ValueError(
+            "link chaos requires intra_workers=1: dispatched lane workers "
+            "rebuild port capacities from the pickled topology and would "
+            "miss mid-run capacity changes")
 
 
 def _keys(i: int, inj: dict, required: set, optional: set) -> None:

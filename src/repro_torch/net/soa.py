@@ -1,11 +1,12 @@
 """Struct-of-arrays flow paths: the face of the max-min solver.
 
 Copy of ``repro.net.soa.FlowTable``, which the port may not import.  The
-reference's ``LaneState`` (the packet family's event lanes) comes with the
-packet family.
+reference's ``LaneState`` (the event lanes of the partition-sharded loop)
+comes with that loop, which is not ported yet.
 
 :class:`FlowTable` holds per-flow *static* routing data in CSR form (one
-int64 port-id row per flow).  Every max-min solve of the analytic engine
+int64 port-id row per flow), registered by the packet oracle and the
+analytic engine alike.  Every max-min solve of the analytic engine
 concatenates the rows of the active flows and calls the exact solver
 (``repro_torch.kernels.maxmin``) directly, instead of rebuilding a
 ``{fid: [ports]}`` dict per solve.  Row order is preserved exactly as the
@@ -19,6 +20,7 @@ from collections.abc import Iterable, Mapping
 
 import numpy as np
 
+from repro_torch.hotpath import hot_path
 from repro_torch.kernels.maxmin.ops import maxmin_rates_arrays
 
 
@@ -47,6 +49,7 @@ class FlowTable:
     def path_links(self, fid: int) -> np.ndarray:
         return self._paths[fid]
 
+    @hot_path
     def csr(self, fids: Iterable[int]) -> tuple[list[int], np.ndarray, np.ndarray]:
         """(fids, path_links, path_off) over ``fids`` in iteration order."""
         fids = list(fids)
@@ -64,6 +67,7 @@ class FlowTable:
                  else np.zeros(0, dtype=np.int64))
         return fids, links, off
 
+    @hot_path
     def solve_rates(self, fids: Iterable[int], link_bw) -> dict[int, float]:
         """Max-min fair rates for ``fids`` (iteration order preserved —
         it seeds the solver's link tie-breaks) over ``link_bw``."""

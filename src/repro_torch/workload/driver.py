@@ -1,10 +1,14 @@
 """Phase-DAG driver: injects flows into a simulator as dependencies resolve.
+From the Wormhole kernel's perspective these launches are *real-time
+interrupt events* (§5.3) — they cannot be known ahead of time, so they
+exercise the skip-back machinery exactly like the paper's live-digital-twin
+scenario.
 
 Copy of ``repro.workload.driver``, which the port may not import.  The
-reference types its simulator as the packet oracle, which the port does not
-have yet; here it is any object with the slice of that interface the
-driver touches (:class:`FlowSim`), which the analytic engine's simulator
-provides."""
+reference types its simulator as the packet oracle; here it is any object
+with the slice of that interface the driver touches (:class:`FlowSim`),
+which the packet oracle and the analytic engine's simulator both provide,
+through the same calls in the same order."""
 from __future__ import annotations
 
 import dataclasses

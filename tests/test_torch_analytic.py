@@ -104,7 +104,7 @@ def test_engine_takes_no_device_and_needs_no_card(monkeypatch):
         run(scn, backend="analytic", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert run(scn, backend="analytic").fcts
-    assert available_backends() == ("analytic", "fluid")
+    assert available_backends() == ("analytic", "fluid", "packet", "wormhole")
 
 
 class RecordingTable(FlowTable):

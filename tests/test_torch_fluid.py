@@ -212,10 +212,11 @@ def test_run_matches_reference_fluid_backend(name):
 def test_run_options_match_reference():
     ref_scn = wave_scenario()
     ref = ref_run(ref_scn, backend="fluid", steps=80, dt=2e-5)
-    port = run(Scenario.from_dict(ref_scn.to_dict()), steps=80, dt=2e-5, device="cpu")
+    port = run(Scenario.from_dict(ref_scn.to_dict()), backend="fluid", steps=80, dt=2e-5,
+               device="cpu")
     _assert_fcts_close(port, ref)
     with pytest.raises(ValueError, match="does not accept opt 'stpes'"):
-        run(Scenario.from_dict(ref_scn.to_dict()), device="cpu", stpes=80)
+        run(Scenario.from_dict(ref_scn.to_dict()), backend="fluid", device="cpu", stpes=80)
 
 
 def test_run_many_matches_reference_batch():
@@ -238,19 +239,20 @@ def test_run_many_matches_reference_batch():
 def test_run_many_workload_scenarios_fall_back_to_run():
     ref_scn = ref_training_scenario(n_gpus=16)
     ref = ref_run(ref_scn, backend="fluid", steps=60)
-    (port,) = run_many([Scenario.from_dict(ref_scn.to_dict())], steps=60, device="cpu")
+    (port,) = run_many([Scenario.from_dict(ref_scn.to_dict())], backend="fluid", steps=60,
+                       device="cpu")
     _assert_fcts_close(port, ref)
 
 
 def test_link_chaos_refused_and_mice_seen_as_in_reference():
     scn = Scenario.from_dict(wave_scenario().variant(name="deg", chaos=[DEGRADE]).to_dict())
     with pytest.raises(ValueError, match="no port queues"):
-        run(scn, device="cpu")
+        run(scn, backend="fluid", device="cpu")
     with pytest.raises(ValueError, match="no port queues"):
-        run_many([scn], device="cpu")
+        run_many([scn], backend="fluid", device="cpu")
     ref_scn = wave_scenario().variant(name="mice", chaos=[MICE])
     ref = ref_run(ref_scn, backend="fluid")
-    port = run(Scenario.from_dict(ref_scn.to_dict()), device="cpu")
+    port = run(Scenario.from_dict(ref_scn.to_dict()), backend="fluid", device="cpu")
     assert any(fid >= 1 << 20 for fid in port.fcts)
     _assert_fcts_close(port, ref)
 
@@ -259,9 +261,9 @@ def test_run_without_device_refuses_to_leave_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scn = Scenario.from_dict(wave_scenario().to_dict())
     with pytest.raises(RuntimeError, match="no.*CUDA|none is available"):
-        run(scn)
+        run(scn, backend="fluid")
     with pytest.raises(RuntimeError, match="none is available"):
-        run_many([scn])
+        run_many([scn], backend="fluid")
     ref_fs, port_fs = _clos_scenarios()
     with pytest.raises(RuntimeError, match="none is available"):
         fluid.fluid_converged_rates(port_fs)
@@ -270,7 +272,7 @@ def test_run_without_device_refuses_to_leave_the_card(monkeypatch):
 def test_run_many_refuses_workers_and_registry_is_the_ports_own():
     scn = Scenario.from_dict(wave_scenario().to_dict())
     with pytest.raises(ValueError, match="workers=2"):
-        run_many([scn], workers=2, device="cpu")
-    assert available_backends() == ("analytic", "fluid")
-    with pytest.raises(ValueError, match="unknown backend 'packet'"):
-        run(scn, backend="packet", device="cpu")
+        run_many([scn], backend="fluid", workers=2, device="cpu")
+    assert available_backends() == ("analytic", "fluid", "packet", "wormhole")
+    with pytest.raises(ValueError, match="unknown backend 'hybrid'"):
+        run(scn, backend="hybrid", device="cpu")

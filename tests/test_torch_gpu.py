@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, run_many, training_scenario
+from repro_torch.api import (FlowSpec, Scenario, TopologySpec, compare, run, run_many,
+                              training_scenario)
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels.cca_step import cca_step, cca_step_plain, fluid_scan, fluid_scan_plain
 from repro_torch.kernels.cca_step.ops import workspace_bytes
@@ -205,12 +206,12 @@ def test_run_on_card_goes_through_the_kernels(cuda):
     scn = training_scenario(n_gpus=32, moe=True)
     n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
-    card = run(scn)                                  # the card is the default
+    card = run(scn, backend="fluid")                 # the card is the default
     # one scan per phase, its steady detector fused into it
     assert (fluid_scan.launches, steady_scan.launches) == (n_phases, 0)
     assert cca_step.launches == 0
     assert card.extras["device"] == torch.cuda.get_device_name(0)
-    _close(card, run(scn, device="cpu"))
+    _close(card, run(scn, backend="fluid", device="cpu"))
 
 
 def test_run_many_on_card_is_one_batched_run(cuda):
@@ -219,11 +220,33 @@ def test_run_many_on_card_is_one_batched_run(cuda):
         FlowSpec(j, j, 8 + (j + i) % 8, size=1e6 * (i + 1)) for j in range(4 + i)])
         for i in range(4)]
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
-    card = run_many(scns, steps=120)
+    card = run_many(scns, backend="fluid", steps=120)
     assert (fluid_scan.launches, steady_scan.launches) == (1, 0)
     assert cca_step.launches == 0
-    for a, b in zip(card, run_many(scns, steps=120, device="cpu")):
+    for a, b in zip(card, run_many(scns, backend="fluid", steps=120, device="cpu")):
         _close(a, b)
+
+
+def test_compare_packet_against_fluid_on_the_card(cuda):
+    """tests/test_wormhole.py's ring workload (8 servers x 4 GPUs, 6 MB per
+    flow) through compare(): the packet oracle on the host, the fluid
+    engine on the card, one fluid_scan per phase (one per wave)."""
+    topo = TopologySpec("roft", {"n_servers": 8, "gpus_per_server": 4, "leaf_radix": 8,
+                                 "n_spines": 2})
+    flows = [FlowSpec(w * 32 + r * 8 + s, s * 4 + r, ((s + 1) % 8) * 4 + r, size=6e6,
+                      start=w * 0.02, tag=f"ring{w}")
+             for w in range(2) for r in range(4) for s in range(8)]
+    scn = Scenario("ring", topo, flows=flows)
+    n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    fluid_scan.launches = 0
+    cmp = compare(scn, backends=("packet", "fluid"))
+    assert fluid_scan.launches == n_phases == 2
+    assert list(cmp.results) == ["packet", "fluid"] and cmp.baseline == "packet"
+    assert cmp["fluid"].extras["device"] == torch.cuda.get_device_name(0)
+    (row,) = cmp.rows()
+    assert row["backend"] == "fluid"
+    assert np.isfinite(row["fct_err_mean"]) and np.isfinite(row["fct_err_max"])
+    assert set(cmp["fluid"].fcts) == set(cmp["packet"].fcts) == {f.fid for f in flows}
 
 
 def _maxmin_inputs(F, L, k):

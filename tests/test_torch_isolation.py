@@ -40,6 +40,9 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "repro_torch.kernels.flash_attention.ops" in out["modules"]
     assert "repro_torch.models.lm" in out["modules"]
     assert "repro_torch.launch.serve" in out["modules"]
+    assert "repro_torch.net.packet_sim" in out["modules"]
+    assert "repro_torch.core.wormhole" in out["modules"]
+    assert "repro_torch.core.memo" in out["modules"]
     assert out["bad"] == []
 
 
