@@ -48,16 +48,34 @@ Phases, one JSON line each:
             rates at rtol 1e-4, with one ``maxmin`` launch per solve;
 8. packet   the host-only event simulators beside the card's fluid engine:
             ``compare(gpt@128 at scale 1/64, backends=("packet", "wormhole",
-            "fluid", "analytic"))`` with each backend's events, wall, speedups
-            and FCT errors against the ``packet`` oracle (wormhole held to the
-            reference's bars, mean under 1 % and max under 5 %; fluid, on the
-            card with one fluid_scan per phase, only to finite errors); then
-            ``wormhole`` on gpt@128 at ``scale=1.0`` (the paper's GPT-13B on
-            128 GPUs) with its kernel report and iteration time beside the
-            fluid and analytic ones; two identical wormhole runs with fresh
-            SimDBs, which must be bit-identical; and a warm two-run
-            ``run_many(..., shared_db=True)`` sweep;
-9. serve    ``repro_torch.launch.serve.generate`` on granite-3-2b at full
+            "hybrid", "fluid", "analytic"))`` with each backend's events,
+            wall, speedups and FCT errors against the ``packet`` oracle
+            (wormhole held to the reference's bars, mean under 1 % and max
+            under 5 %; hybrid at ``fidelity="auto"`` with its demotions and
+            promotions, held to finite errors; fluid, on the card with one
+            fluid_scan per phase, only to finite errors); then
+            ``wormhole`` and ``hybrid`` (``fidelity`` "flow" and "auto") on
+            gpt@128 at ``scale=1.0`` (the paper's GPT-13B on 128 GPUs) with
+            their reports and iteration times beside the fluid and analytic
+            ones; two identical wormhole runs with fresh SimDBs, which must
+            be bit-identical; a warm two-run ``run_many(..., shared_db=True)``
+            sweep; and ``packet`` at scale 1/256 on the serial loop and on
+            the partition-sharded one (``parallel="partitions"``,
+            ``intra_workers`` 1 and 2), whose FCTs and events must equal the
+            serial run's, with the lane-worker pool's start-up time and a
+            check that its worker holds no torch;
+9. learned  the learned engine end to end: ``benchmarks/learned_bench.py``'s
+            64-scenario wave family (16 sizes x dctcp/hpcc x 16/32 hosts) on
+            ``wormhole`` as ground truth, ``build_dataset`` over its records,
+            ``fit`` on the card (hidden (64, 64), 1200 steps, seed 0; held-out
+            mean FCT error under 0.10) twice, which must be identical, and
+            once on the CPU from the same initial weights; ``predict`` on the
+            card against the CPU (rtol 1e-5, atol 1e-6 on log slowdowns);
+            one ``run_batch`` over a 1024-query what-if sweep, with the
+            host's feature extraction and the card's ``predict`` timed
+            apart; and ``compare()`` of all six backends on a held-out
+            scenario, with one fluid_scan per phase;
+10. serve   ``repro_torch.launch.serve.generate`` on granite-3-2b at full
             width and depth in bf16 (seeded weights): batch 4, a 2048-token
             prompt through ``Model.prefill``, then 32 greedy tokens through
             ``Model.decode_step``; exactly 40 ``flash_attention`` launches in
@@ -109,6 +127,9 @@ CONTINUATION_TOL = 2e-2               # tests/test_archs.py:125
 CARD_CPU_NORMWISE = 1e-3              # max|card - cpu| <= tol * max|cpu|, float32
 WORMHOLE_MEAN_ERR, WORMHOLE_MAX_ERR = 0.01, 0.05   # tests/test_wormhole.py:37-42
 PACKET_PHASE_WALL_S = 300             # the packet phase's whole wall, a guard on the time limit
+LEARNED_HELDOUT_ERR = 0.10            # tests/test_learned.py:125-128
+PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)   # log slowdowns, card vs CPU
+LEARNED_BACKENDS = ("packet", "wormhole", "hybrid", "fluid", "analytic", "learned")
 
 
 def emit(phase: str, **fields) -> None:
@@ -824,9 +845,10 @@ def same_run(a, b) -> bool:
 
 
 def phase_packet(torch, launches: dict, fluid_iters: dict, analytic_iters: dict) -> None:
-    """The packet oracle and the Wormhole kernel on the card machine's CPU,
-    beside the fluid engine on the card.  Event counts are this machine's
-    own: they are held to the reference's by the CPU tests, not here."""
+    """The packet oracle, the Wormhole kernel and the hybrid engine on the
+    card machine's CPU, beside the fluid engine on the card.  Event counts
+    are this machine's own: they are held to the reference's by the CPU
+    tests, not here."""
     from repro_torch.api import SimDB, compare, run, run_many, summarize_pair, training_scenario
     from repro_torch.kernels.cca_step import cca_step, fluid_scan
     from repro_torch.kernels.steady_scan import steady_scan
@@ -834,34 +856,29 @@ def phase_packet(torch, launches: dict, fluid_iters: dict, analytic_iters: dict)
     scn = training_scenario(n_gpus=128, scale=1 / 64)
     n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
-    cmp = compare(scn, backends=("packet", "wormhole", "fluid", "analytic"))
+    cmp = compare(scn, backends=("packet", "wormhole", "hybrid", "fluid", "analytic"),
+                  backend_opts={"hybrid": {"fidelity": "auto"}})
     torch.cuda.synchronize()
     counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
                   cca_step=cca_step.launches)
     check(counts == dict(fluid_scan=n_phases, steady_scan=0, cca_step=0),
           f"compare: launches {counts}, expected one fluid_scan per phase ({n_phases})")
     launches["fluid_scan"] += counts["fluid_scan"]
-    base = cmp["packet"]
-    rows = {}
-    for b, r in cmp.results.items():
-        check(finite_fcts(r) and set(r.fcts) == set(base.fcts),
-              f"compare: {b} has bad FCTs or another flow set than packet")
-        row = dict(events=r.events_processed, wall_s=r.wall_time,
-                   iteration_time=r.iteration_time)
-        if b != cmp.baseline:
-            s = summarize_pair(base, r)
-            row.update(event_speedup=s["event_speedup"], wall_speedup=s["wall_speedup"],
-                       fct_err_mean=s["fct_err_mean"], fct_err_max=s["fct_err_max"])
-        rows[b] = row
-    wh, fl = rows["wormhole"], rows["fluid"]
+    rows = comparison_rows(cmp)
+    wh, hy, fl = rows["wormhole"], rows["hybrid"], rows["fluid"]
     check(wh["fct_err_mean"] < WORMHOLE_MEAN_ERR and wh["fct_err_max"] < WORMHOLE_MAX_ERR,
           f"wormhole vs packet: mean FCT err {wh['fct_err_mean']}, max {wh['fct_err_max']}")
-    check(np.isfinite(fl["fct_err_mean"]) and np.isfinite(fl["fct_err_max"]),
-          f"fluid vs packet: FCT error not finite: {fl}")
+    for b, row in (("hybrid", hy), ("fluid", fl)):
+        check(np.isfinite(row["fct_err_mean"]) and np.isfinite(row["fct_err_max"]),
+              f"{b} vs packet: FCT error not finite: {row}")
+    g = cmp["hybrid"].extras["granularity"]
+    hy.update(demotions=g["demotions"], promotions=g["promotions"],
+              packet_lane_events=g["packet_lane_events"],
+              flow_lane_events=g["flow_lane_events"])
     rows["fluid"]["device"] = cmp["fluid"].extras["device"]
     emit("packet", scenario=scn.name, what="compare", host="the card machine's CPU",
-         flows=len(base.fcts), phases_with_flows=n_phases, launches=counts, backends=rows,
-         bars=dict(wormhole_mean=WORMHOLE_MEAN_ERR, wormhole_max=WORMHOLE_MAX_ERR))
+         flows=len(cmp["packet"].fcts), phases_with_flows=n_phases, launches=counts,
+         backends=rows, bars=dict(wormhole_mean=WORMHOLE_MEAN_ERR, wormhole_max=WORMHOLE_MAX_ERR))
 
     full = training_scenario(n_gpus=128, scale=1.0)
     res = run(full, backend="wormhole")
@@ -874,6 +891,21 @@ def phase_packet(torch, launches: dict, fluid_iters: dict, analytic_iters: dict)
          db_hits=rep["db_hits"], db_lookups=rep["db_lookups"],
          iteration_time=res.iteration_time, fluid_iteration_time=fluid_iters["gpt@128"],
          analytic_iteration_time=analytic_iters["gpt@128"])
+    for fidelity in ("flow", "auto"):
+        hyb = run(full, backend="hybrid", fidelity=fidelity)
+        check(finite_fcts(hyb) and set(hyb.fcts) == set(res.fcts),
+              f"hybrid {fidelity} at scale 1.0: bad FCTs or another flow set")
+        g = hyb.extras["granularity"]
+        emit("packet", scenario=full.name, what=f"hybrid {fidelity} at full message sizes",
+             host="the card machine's CPU", events=hyb.events_processed,
+             wall_s=hyb.wall_time, iteration_time=hyb.iteration_time,
+             demotions=g["demotions"], promotions=g["promotions"],
+             packet_lane_events=g["packet_lane_events"],
+             flow_lane_events=g["flow_lane_events"],
+             fct_err_vs_wormhole=summarize_pair(res, hyb)["fct_err_mean"],
+             wormhole_iteration_time=res.iteration_time,
+             fluid_iteration_time=fluid_iters["gpt@128"],
+             analytic_iteration_time=analytic_iters["gpt@128"])
 
     a = run(scn, backend="wormhole", db=SimDB())
     b = run(scn, backend="wormhole", db=SimDB())
@@ -881,13 +913,208 @@ def phase_packet(torch, launches: dict, fluid_iters: dict, analytic_iters: dict)
     warm = scn.variant(name=f"{scn.name}-x1.05", size_scale=1.05)
     sweep = run_many([scn, warm], backend="wormhole", shared_db=True)
     check(all(finite_fcts(r) for r in sweep), "warm sweep: bad FCTs")
-    wall = time.perf_counter() - t_phase
     emit("packet", what="determinism and warm sweep", repeat_bit_identical=True,
          repeat_events=a.events_processed, repeat_walls_s=[a.wall_time, b.wall_time],
          sweep_events=[r.events_processed for r in sweep],
          sweep_run_db_hits=[r.kernel_report["run_db_hits"] for r in sweep],
-         sweep_walls_s=[r.wall_time for r in sweep], phase_wall_s=wall)
+         sweep_walls_s=[r.wall_time for r in sweep])
+
+    phase_sharded(training_scenario(n_gpus=128, scale=1 / 256))
+    wall = time.perf_counter() - t_phase
+    emit("packet", what="phase", phase_wall_s=wall)
     check(wall < PACKET_PHASE_WALL_S, f"packet phase took {wall} s")
+
+
+def comparison_rows(cmp) -> dict:
+    """Each backend's events, wall and iteration time, and against the
+    baseline its speedups and FCT errors; every backend must have finite
+    FCTs for the baseline's flows."""
+    from repro_torch.api import summarize_pair
+    base = cmp[cmp.baseline]
+    rows = {}
+    for b, r in cmp.results.items():
+        check(finite_fcts(r) and set(r.fcts) == set(base.fcts),
+              f"compare: {b} has bad FCTs or another flow set than {cmp.baseline}")
+        row = dict(events=r.events_processed, wall_s=r.wall_time,
+                   iteration_time=r.iteration_time)
+        if b != cmp.baseline:
+            s = summarize_pair(base, r)
+            row.update(event_speedup=s["event_speedup"], wall_speedup=s["wall_speedup"],
+                       fct_err_mean=s["fct_err_mean"], fct_err_max=s["fct_err_max"])
+        rows[b] = row
+    return rows
+
+
+_WORKER_PROBE = ("sorted(m for m in __import__('sys').modules if m.split('.')[0] "
+                 "in ('torch', 'jax', 'repro', 'repro_torch'))")
+
+
+def phase_sharded(scn) -> None:
+    """``packet`` on the serial loop and on the partition-sharded loop at
+    ``intra_workers`` 1 and 2: the same FCTs and events.  The lane-worker
+    pool (``intra_workers - 1`` spawned processes, shared process-wide) is
+    started and timed first, then asked what its worker imported."""
+    from repro_torch.api import run
+    from repro_torch.net.sharded_sim import _shared_pool, shutdown_pools
+    serial = run(scn, backend="packet")
+    check(finite_fcts(serial), "packet at scale 1/256: bad FCTs")
+    t0 = time.perf_counter()
+    pool = _shared_pool(1)
+    pool.submit(int).result()
+    pool_start_s = time.perf_counter() - t0
+    walls, shards = {}, {}
+    for iw in (1, 2):
+        par = run(scn, backend="packet", parallel="partitions", intra_workers=iw)
+        # equal FCTs; their dict order is the lanes' completion order, as
+        # in the reference
+        check(par.fcts == serial.fcts and par.events_processed == serial.events_processed
+              and par.iteration_time == serial.iteration_time,
+              f"sharded packet at intra_workers={iw} differs from the serial loop")
+        walls[iw], shards[iw] = par.wall_time, par.extras["shard"]
+    check(shards[2]["dispatches"] > 0, "intra_workers=2 dispatched no lane")
+    worker_modules = pool.submit(eval, _WORKER_PROBE).result(timeout=60)
+    shutdown_pools()
+    check("repro_torch.net.sharded_sim" in worker_modules
+          and all(m.split(".")[0] == "repro_torch" for m in worker_modules),
+          f"the lane worker imported {worker_modules}")
+    emit("packet", scenario=scn.name, what="sharded packet loop", host="the card machine's CPU",
+         events=serial.events_processed, equal_to_serial=True, serial_wall_s=serial.wall_time,
+         sharded_wall_s={f"intra_workers={k}": v for k, v in walls.items()},
+         pool_start_s=pool_start_s, shard=shards[2], worker_torch_free=True)
+
+
+# ---------------------------------------------------------------------- #
+# the learned engine (benchmarks/learned_bench.py's loop, on the card)
+# ---------------------------------------------------------------------- #
+def wave_scenario(size_scale: float = 1.0, cca: str = "dctcp", n_hosts: int = 16,
+                  name: str = "waves", base_size: float = 8e5):
+    """Copy of ``benchmarks/learned_bench.py``'s ``wave_scenario``: two
+    staggered 4-flow waves crossing a clos leaf boundary."""
+    from repro_torch.api import FlowSpec, Scenario
+    flows, fid = [], 0
+    for wave, start in enumerate((0.0, 0.02)):
+        for i in range(4):
+            flows.append(FlowSpec(fid=fid, src=i, dst=8 + i + wave,
+                                  size=base_size * size_scale, start=start,
+                                  cca=cca, tag=f"w{wave}"))
+            fid += 1
+    return Scenario.from_dict({
+        "name": name,
+        "topology": {"kind": "clos", "params": {"n_hosts": n_hosts}},
+        "flows": [f.__dict__ for f in flows], "kernel": {}, "sim": {}})
+
+
+def wave_family(n_sizes: int = 16, ccas=("dctcp", "hpcc"), hosts=(16, 32),
+                base_size: float = 8e5) -> list:
+    """Copy of ``benchmarks/learned_bench.py``'s ``wave_family``: flow-size
+    scales x CCAs x fabric widths (16 x 2 x 2 = 64 scenarios)."""
+    return [wave_scenario(float(s), cca=cca, n_hosts=h, base_size=base_size,
+                          name=f"waves-{cca}-h{h}-s{i}")
+            for cca in ccas for h in hosts
+            for i, s in enumerate(np.linspace(0.5, 2.0, n_sizes))]
+
+
+def phase_learned(torch, launches: dict) -> None:
+    import types
+
+    from repro_torch.api import compare, get_engine, run, run_key, scenario_fingerprint
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
+    from repro_torch.kernels.steady_scan import steady_scan
+    from repro_torch.learned import build_dataset, encode, fit, flow_table, heldout_fct_error
+    from repro_torch.learned import model as M
+    from repro_torch.learned.engine import _violations
+
+    family = wave_family()
+    t0 = time.perf_counter()
+    records = []
+    for s in family:
+        r = run(s, backend="wormhole")
+        records.append({"key": run_key(s, "wormhole", {}), "backend": "wormhole",
+                        "scenario_fingerprint": scenario_fingerprint(s),
+                        "scenario": s.to_dict(), "result": r.to_dict()})
+    truth_wall = time.perf_counter() - t0
+    ds = build_dataset(types.SimpleNamespace(records=lambda: iter(records)))
+
+    fits, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append(fit(ds, seed=0, steps=1200))
+        walls.append(time.perf_counter() - t0)
+    params = fits[0]
+    check(fits[1].fingerprint == params.fingerprint, "two fixed-seed fits on the card differ")
+    err = heldout_fct_error(params, ds)
+    check(err < LEARNED_HELDOUT_ERR, f"held-out mean FCT error {err} over {LEARNED_HELDOUT_ERR}")
+    t0 = time.perf_counter()
+    cpu_fit = fit(ds, seed=0, steps=1200, device="cpu")
+    cpu_fit_wall = time.perf_counter() - t0
+    drift = max(float(np.abs(a - b).max()) for wb0, wb1 in zip(params.weights, cpu_fit.weights)
+                for a, b in zip(wb0, wb1))
+    pred = M.predict(params, ds.X)
+    pred_cpu = M.predict(params, ds.X, device="cpu")
+    pred_err = float(np.abs(pred - pred_cpu).max())
+    check(bool(np.all(np.abs(pred - pred_cpu)
+                      <= PREDICT_TOL["atol"] + PREDICT_TOL["rtol"] * np.abs(pred_cpu))),
+          f"predict: card vs CPU max abs err {pred_err}")
+    train = params.meta["train"]
+    emit("learned", what="fit", host_truth="wormhole on the card machine's CPU",
+         scenarios=len(family), truth_wall_s=truth_wall, flows=len(ds),
+         records=ds.n_records, heldout_records=ds.n_heldout_records,
+         fit_walls_s=walls, device=torch.cuda.get_device_name(0),
+         steps=train["steps"], best_step=train["best_step"], train_mse=train["train_mse"],
+         heldout_mse=train["heldout_mse"], heldout_fct_err=err, bar=LEARNED_HELDOUT_ERR,
+         fits_identical=True, cpu_fit_wall_s=cpu_fit_wall,
+         cpu_fit_best_step=cpu_fit.meta["train"]["best_step"],
+         cpu_fit_heldout_fct_err=heldout_fct_error(cpu_fit, ds, device="cpu"),
+         card_vs_cpu_fit_max_weight_diff=drift, predict_max_abs_err=pred_err,
+         predict_tol=PREDICT_TOL)
+
+    rng = np.random.default_rng(0)
+    queries = [wave_scenario(float(s), cca=("dctcp", "hpcc")[i % 2],
+                             n_hosts=(16, 32)[(i // 2) % 2], name=f"q{i}")
+               for i, s in enumerate(rng.uniform(0.55, 1.95, 1024))]
+    engine = get_engine("learned")
+    engine.run_batch(queries[:8], params=params)             # warm caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.run_batch(queries, params=params)
+    batch_wall = time.perf_counter() - t0
+    check(len(out) == len(queries) and all(finite_fcts(r) for r in out),
+          "run_batch: bad FCTs")
+    check(out[0].extras["device"] == torch.cuda.get_device_name(0), "run_batch left the card")
+    t0 = time.perf_counter()
+    X = np.concatenate([encode(flow_table(q), params.meta["cca_vocab"],
+                               params.meta["topo_vocab"])[0] for q in queries])
+    host_wall = time.perf_counter() - t0
+    M.predict(params, X)                                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.predict(params, X)
+    predict_wall = time.perf_counter() - t0
+    emit("learned", what="what-if sweep", queries=len(out), flows=len(X),
+         batch_wall_s=batch_wall, queries_per_s=len(out) / batch_wall,
+         host_features_wall_s=host_wall, card_predict_wall_s=predict_wall)
+
+    held_key = next(k for k, h in zip(ds.record_key, ds.heldout) if h)
+    scn = next(s for s, rec in zip(family, records) if rec["key"] == held_key)
+    table = flow_table(scn)
+    X, unknown = encode(table, params.meta["cca_vocab"], params.meta["topo_vocab"])
+    ood = "warn" if _violations(scn, table, unknown, params.meta) else "error"
+    n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
+    cmp = compare(scn, backends=LEARNED_BACKENDS,
+                  backend_opts={"learned": {"params": params, "ood": ood}})
+    torch.cuda.synchronize()
+    counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
+                  cca_step=cca_step.launches)
+    check(counts == dict(fluid_scan=n_phases, steady_scan=0, cca_step=0),
+          f"six-backend compare: launches {counts}, expected one fluid_scan per phase")
+    launches["fluid_scan"] += counts["fluid_scan"]
+    rows = comparison_rows(cmp)
+    check(cmp["learned"].extras["device"] == torch.cuda.get_device_name(0),
+          "the learned engine left the card")
+    emit("learned", what="compare", scenario=scn.name, heldout=True, ood=ood,
+         launches=counts, backends=rows)
 
 
 def normwise(a, b) -> dict:
@@ -1096,6 +1323,7 @@ def main() -> int:
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
     analytic_iters = phase_analytic(torch, scenarios, recorded, launches)
     phase_packet(torch, launches, fluid_iters, analytic_iters)
+    phase_learned(torch, launches)
     phase_serve(torch, launches)
 
     k1 = rows[("fluid_scan", "moe@1024")]

@@ -4,10 +4,18 @@ The JAX package ``repro`` is the reference; this package stands beside
 it, imports nothing of it, and holds the same API to the reference's
 numbers.  What runs so far:
 
-- the ``packet`` oracle and the ``wormhole`` backend (the oracle under the
-  memoizing, fast-forwarding kernel), on the host, event for event the
-  reference's, with ``compare()`` to put backends side by side and
-  ``run_many(..., shared_db=True)`` to carry one memo DB through a sweep;
+- all six backends of the reference, under its names, so ``compare()``
+  spans the whole fidelity ladder;
+- the ``packet`` oracle, the ``wormhole`` backend (the oracle under the
+  memoizing, fast-forwarding kernel) and the ``hybrid`` backend (adaptive
+  packet/flow granularity), on the host, event for event the reference's,
+  on the serial loop or the partition-sharded one (``parallel=
+  "partitions"``, ``intra_workers``), with ``compare()`` to put backends
+  side by side and ``run_many(..., shared_db=True)`` to carry one memo DB
+  through a sweep;
+- the ``learned`` backend (``repro_torch.learned``): per-flow features from
+  the scenario on the host, an MLP fitted with ``torch.autograd`` and served
+  on the card;
 - the ``fluid`` backend end to end: ``repro_torch.api.run(scenario,
   backend="fluid")`` solves each phase's fluid rates through the
   hand-written ``fluid_scan`` kernel (the phase's whole DCTCP scan and its
@@ -20,5 +28,5 @@ numbers.  What runs so far:
 
 Entry points that use the card run on it unless the caller passes
 ``device="cpu"``; the host-only backends (``packet``, ``wormhole``,
-``analytic``) take no ``device``.
+``hybrid``, ``analytic``) take no ``device``.
 """

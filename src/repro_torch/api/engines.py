@@ -6,17 +6,22 @@ run store: nothing keys a result by backend name across the two packages.
     packet    per-packet DES oracle (the ns-3 stand-in), on the host
     wormhole  the same oracle under the memoizing/fast-forwarding kernel,
               on the host
+    hybrid    adaptive per-partition packet/flow granularity on the
+              partition-sharded loop, on the host
     fluid     DCTCP fluid rate dynamics through the hand-written
               ``fluid_scan`` kernel (a phase's control steps and its steady
               detector in one launch; batched sweeps in ``run_batch``)
     analytic  flow-level max-min fair sharing, on the host (cheapest,
               coarsest)
+    learned   an MLP fitted on packet-level runs (``repro_torch.learned``),
+              served on the card: batched what-if queries, in-distribution
 
-The fluid engine runs on the CUDA card unless the caller passes
+The fluid and learned engines run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no ``device``, ``run`` raises.  The
-packet, wormhole and analytic engines take no ``device``: they are event
-simulators on the host in both packages, and their results are the
-reference's bit for bit.
+packet, wormhole, hybrid and analytic engines take no ``device``: they are
+event simulators on the host in both packages, and their results are the
+reference's bit for bit, with the serial loop or the partition-sharded one
+(``parallel="partitions"``, ``intra_workers``).
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from repro_torch.device import device_name, resolve_device
 from repro_torch.net import chaos as chaos_mod
 from repro_torch.net.fluid import (FluidScenario, fluid_converged_rates,
                                    sweep_converged_rates)
+from repro_torch.net.hybrid_sim import FIDELITIES, HybridConfig, HybridKernel, HybridSim
 from repro_torch.net.packet_sim import PacketSim
+from repro_torch.net.sharded_sim import ShardedPacketSim
 from repro_torch.workload.driver import WorkloadDriver
 
 _REGISTRY: dict[str, type] = {}
@@ -221,11 +228,11 @@ class PacketEngine(Engine):
     reference's, event for event) and takes no ``device``.
 
     opts (shared by the wormhole subclass):
-      parallel       None or ``"none"`` (the single-heap serial loop); the
-                     reference's ``"partitions"`` (partition-sharded loop)
-                     raises NotImplementedError until that loop is ported
-      intra_workers  1; more workers belong to the sharded loop and raise
-                     NotImplementedError
+      parallel       None (single-heap serial loop) or ``"partitions"``
+                     (partition-sharded loop, ``repro_torch.net.sharded_sim``)
+      intra_workers  worker processes for the sharded loop's heavy-lane
+                     fan-out; 1 keeps sharded execution in-process.  Results
+                     are identical to the serial loop for any value.
     """
     option_names = ("intra_workers", "parallel", "record_rtt", "until",
                     "validate")
@@ -240,30 +247,37 @@ class PacketEngine(Engine):
         chaos_mod.check_backend(plan, self.name, intra_workers=intra_workers)
         topo = scenario.build_topology()
         kernel, report_fn = self._make_kernel(scenario, **opts)
-        if parallel not in (None, "none", "partitions"):
+        if parallel is None or parallel == "none":
+            if intra_workers > 1 or validate:
+                # silently running the serial loop would make the user
+                # believe the fan-out (or invariant checking) was active
+                raise ValueError(
+                    "intra_workers/validate require parallel='partitions'")
+            sim = PacketSim(topo, kernel=kernel, **scenario.sim)
+        elif parallel == "partitions":
+            sim = ShardedPacketSim(topo, kernel=kernel,
+                                   intra_workers=intra_workers,
+                                   validate=validate, **scenario.sim)
+        else:
             raise ValueError(
                 f"unknown parallel mode {parallel!r} (use 'partitions')")
-        if parallel == "partitions" or intra_workers > 1:
-            raise NotImplementedError(
-                f"parallel={parallel!r}, intra_workers={intra_workers}: the "
-                "partition-sharded event loop is not ported yet (ROADMAP.md "
-                "Queue 1, the sharded-loop item); use parallel=None")
-        if validate:
-            # silently running the serial loop would make the user believe
-            # the invariant checking was active
-            raise ValueError(
-                "intra_workers/validate require parallel='partitions'")
-        sim = PacketSim(topo, kernel=kernel, **scenario.sim)
         sim.record_rtt_fids = set(record_rtt)
         driver = _drive(scenario, sim)
         if plan is not None and plan.has_link_events:
             plan.install(sim)
         t0 = time.perf_counter()
-        sim.run(until=until)
+        try:
+            sim.run(until=until)
+        finally:
+            if parallel == "partitions":
+                sim.close()
         wall = time.perf_counter() - t0
-        return _collect(self.name, scenario, sim, driver, wall,
-                        kernel_report=report_fn() if report_fn else None,
-                        record_rtt=record_rtt)
+        result = _collect(self.name, scenario, sim, driver, wall,
+                          kernel_report=report_fn() if report_fn else None,
+                          record_rtt=record_rtt)
+        if parallel == "partitions":
+            result.extras["shard"] = sim.shard_report()
+        return result
 
 
 @register_engine("wormhole")
@@ -302,6 +316,76 @@ class WormholeEngine(PacketEngine):
         return kernel, report
 
 
+@register_engine("hybrid")
+class HybridEngine(Engine):
+    """HyGra-style adaptive granularity on the sharded packet loop: rate-
+    stable partitions demote to a max-min-solver-driven flow-level lane and
+    promote back on contention change (``repro_torch.net.hybrid_sim``), on
+    the host.  The flow lane solves with the exact float64 host solver, as
+    the reference does, so results are the reference's bit for bit.
+
+    opts:
+      fidelity       "packet" (bit-identical to the sharded serial loop) |
+                     "auto" (adaptive demote/promote, the default) |
+                     "flow" (everything flow-level from t=0, coarsest)
+      demote_after   stable samples before a partition demotes (auto mode)
+      config         HybridConfig or dict merged over scenario.kernel
+                     (foreign keys are ignored — scenarios share one
+                     kernel-knob dict across backends)
+      intra_workers  worker processes for heavy packet-lane fan-out, as in
+                     the packet/wormhole backends
+
+    ``RunResult.extras["granularity"]`` reports per-granularity event
+    counts (packet_lane_events / flow_lane_events) and transition stats.
+    """
+    option_names = ("config", "demote_after", "fidelity", "intra_workers",
+                    "record_rtt", "until", "validate")
+
+    def run(self, scenario: Scenario, fidelity: str | None = None,
+            demote_after: int | None = None, config=None,
+            record_rtt=(), until: float = float("inf"),
+            intra_workers: int = 1, validate: bool = False,
+            **opts) -> RunResult:
+        if isinstance(config, HybridConfig):
+            cfg = dataclasses.replace(config)    # never mutate the caller's
+        else:
+            cfg = HybridConfig.from_knobs({**scenario.kernel, **(config or {})})
+        # explicit engine opts override the config; an unset opt must not
+        # clobber a fidelity carried by config=/scenario.kernel
+        if fidelity is not None:
+            cfg.fidelity = fidelity
+        if demote_after is not None:
+            cfg.demote_after = demote_after
+        if cfg.fidelity not in FIDELITIES:
+            raise ValueError(f"unknown fidelity {cfg.fidelity!r}; "
+                             f"have {FIDELITIES}")
+        plan = chaos_mod.plan_for(scenario)
+        chaos_mod.check_backend(plan, self.name, intra_workers=intra_workers)
+        topo = scenario.build_topology()
+        kernel, report_fn = None, None
+        if cfg.fidelity != "packet":
+            kernel = HybridKernel(cfg)
+            report_fn = kernel.report
+        sim = HybridSim(topo, kernel=kernel, intra_workers=intra_workers,
+                        validate=validate, **scenario.sim)
+        sim.record_rtt_fids = set(record_rtt)
+        driver = _drive(scenario, sim)
+        if plan is not None and plan.has_link_events:
+            plan.install(sim)
+        t0 = time.perf_counter()
+        try:
+            sim.run(until=until)
+        finally:
+            sim.close()
+        wall = time.perf_counter() - t0
+        result = _collect(self.name, scenario, sim, driver, wall,
+                          kernel_report=report_fn() if report_fn else None,
+                          record_rtt=record_rtt)
+        result.extras["granularity"] = sim.granularity_report()
+        result.extras["shard"] = sim.shard_report()
+        return result
+
+
 @register_engine("analytic")
 class AnalyticEngine(Engine):
     """Progressive max-min fair-share model — the flow-level abstraction the
@@ -324,3 +408,9 @@ class AnalyticEngine(Engine):
         sim.run(until=until)
         wall = time.perf_counter() - t0
         return _collect(self.name, scenario, sim, driver, wall)
+
+
+# the learned engine lives in its own package (it has a training half the
+# registry does not need); a plain import is safe in either import order —
+# repro_torch.learned.engine only pulls names already defined above
+import repro_torch.learned.engine  # noqa: E402, F401

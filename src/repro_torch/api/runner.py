@@ -6,34 +6,18 @@ the reference's anonymous in-memory campaign all the same: identical
 ``(scenario, backend, opts)`` triples within one call are simulated once,
 and the defaults are the reference's (the ``packet`` oracle, compared with
 ``wormhole``).  The fluid engine runs on the CUDA card unless
-``device="cpu"`` is passed; packet, wormhole and analytic run on the host.
+``device="cpu"`` is passed; so does the learned engine's MLP.  Packet,
+wormhole, hybrid and analytic run on the host.
 """
 from __future__ import annotations
 
-import itertools
-import json
-
 from repro_torch.api.engines import Engine, get_engine
-from repro_torch.api.results import Comparison, RunResult, jsonify
+from repro_torch.api.results import Comparison, RunResult
 from repro_torch.api.scenario import Scenario
+from repro_torch.api.store import run_key
 from repro_torch.core.memo import SimDB
 
 __all__ = ["Comparison", "compare", "run", "run_many"]
-
-# every opt with no canonical JSON form (a live SimDB handle) keys its own
-# run, as in the reference's store keys
-_UNCACHEABLE = itertools.count(1)
-
-
-def _run_key(scenario: Scenario, backend: str, opts: dict) -> str:
-    """What the reference's ``run_key`` hashes, unhashed: two calls collapse
-    into one simulation exactly when their keys are equal."""
-    return json.dumps({
-        "scenario": scenario.to_dict(),
-        "backend": backend,
-        "opts": jsonify(opts, fallback=lambda v:
-                        f"<uncacheable {type(v).__name__} #{next(_UNCACHEABLE)}>"),
-    }, sort_keys=True, separators=(",", ":"))
 
 
 def run(scenario: Scenario, backend: str = "packet", **opts) -> RunResult:
@@ -48,7 +32,8 @@ def run_many(scenarios: list[Scenario], backend: str = "packet",
              workers: int = 1, **opts) -> list[RunResult]:
     """Evaluate a sweep; results keep scenario order, and identical
     scenarios in one call are simulated once (the later ones share the
-    first one's result).
+    first one's result), keyed by the reference's ``run_key``; an opt with
+    no canonical JSON form (a live SimDB handle) keys its own run.
 
     ``shared_db=True`` (wormhole only) threads one memo DB through the runs
     in order, so transients memoized in run 1 fast-forward runs 2..N; pass
@@ -71,7 +56,7 @@ def run_many(scenarios: list[Scenario], backend: str = "packet",
     if wants_db and db is None:
         db = SimDB()
     scenarios = list(scenarios)
-    keys = [_run_key(s, backend, opts) for s in scenarios]
+    keys = [run_key(s, backend, opts) for s in scenarios]
     first: dict[str, int] = {}
     for i, k in enumerate(keys):
         first.setdefault(k, i)

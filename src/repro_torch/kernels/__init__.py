@@ -16,15 +16,23 @@ PyTorch version of the same function; the CUDA sources live in
 ``repro_torch/csrc`` and are built by :mod:`repro_torch.kernels.build` at
 first use.  A wrapper takes the plain version only for CPU tensors: for a
 CUDA tensor it launches the kernel or raises.
+
+This package and ``maxmin.ops`` import torch only inside the functions that
+take tensors: the exact host solver in ``maxmin.ops`` sits under the packet
+path, whose spawned lane workers must not pay torch's import.
 """
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def float32_input(x: torch.Tensor, name: str) -> torch.Tensor:
     """Kernels compute in float32, as the reference's wrappers do: floating
     inputs of another width are upcast, anything else is refused."""
+    import torch
     if not isinstance(x, torch.Tensor) or not x.is_floating_point():
         raise TypeError(f"{name}: expected a floating-point tensor, got "
                         f"{getattr(x, 'dtype', type(x).__name__)}")

@@ -22,6 +22,10 @@ The dense solvers cover simple paths only (no link repeated within one
 path, as every real route is): 0/1 incidence cannot express the dict
 loop's per-occurrence capacity decrement.  Both refuse an incidence with
 any other value, where the reference's oracle would weigh it.
+
+The exact solver is what the packet family's flow lanes and the learned
+features run, down to the sharded loop's spawned workers, so torch (and
+``repro_torch.kernels.build``) are imported only inside the dense solvers' functions.
 """
 from __future__ import annotations
 
@@ -29,12 +33,14 @@ import ctypes
 import functools
 from collections.abc import Mapping, Sequence
 
-import numpy as np
-import torch
+from typing import TYPE_CHECKING
 
-from repro_torch.device import resolve_device
+import numpy as np
+
 from repro_torch.kernels import float32_input
-from repro_torch.kernels.build import load
+
+if TYPE_CHECKING:
+    import torch
 
 BIG = 3e38                   # sentinel share for user-less links (a float32 value)
 NOLINK_RATE = 1e12           # rate for flows that cross no link (dict parity)
@@ -224,6 +230,7 @@ def maxmin_plain(inc: torch.Tensor, cap: torch.Tensor, *,
     inc, cap = _check(inc, cap)
     if bool(((inc != 0) & (inc != 1)).any()):       # one reduction; syncs on the card
         raise ValueError("maxmin: inc must be a 0/1 incidence")
+    import torch
     F, L = inc.shape
     if L == 0:
         rates = torch.full((F,), NOLINK_RATE, dtype=torch.float32, device=inc.device)
@@ -258,6 +265,7 @@ _PLAN_KEYS = ("regime", "cluster", "kernels", "threads", "blocks", "pack_blocks"
 
 @functools.cache
 def _library():
+    from repro_torch.kernels.build import load
     cdll = load("maxmin")["maxmin"].cdll
     cdll.maxmin_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
@@ -273,6 +281,7 @@ def _plan(F: int, L: int, device_index: int):
     ``maxmin_launch`` takes.  Planning sets the kernels' attributes on the
     device and asks the occupancy calculator, which costs more than a
     launch, so each shape is planned once."""
+    import torch
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     with torch.cuda.device(device_index):
         err = _library().maxmin_plan(F, L, out)
@@ -290,6 +299,7 @@ def plan(F: int, L: int, device=None) -> dict:
     solve (1, or 2 where a pack kernel over every SM comes first),
     ``threads``, ``blocks``, ``pack_blocks``, ``smem_bytes`` per block and
     ``scratch_words``."""
+    import torch
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     how = dict(zip(_PLAN_KEYS, _plan(F, L, index)))
@@ -305,6 +315,7 @@ def maxmin_kernel(inc: torch.Tensor, cap: torch.Tensor) -> tuple[torch.Tensor, t
     flag (1: ``inc`` holds another value, and ``rates`` are not written).
     It counts nothing and does not synchronise, so a timing loop may call
     it to time the device's work alone."""
+    import torch
     F, L = inc.shape
     dev = inc.device
     how = _plan(F, L, dev.index)
@@ -330,6 +341,7 @@ def maxmin(inc: torch.Tensor, cap: torch.Tensor, *, with_rounds: bool = False):
     reads its 0/1 flag back, which waits for the solve; on CPU tensors it
     runs :func:`maxmin_plain`.  With no links there is nothing to solve:
     every flow gets ``NOLINK_RATE`` and nothing is launched."""
+    import torch
     inc, cap = _check(inc, cap)
     if inc.device.type == "cpu":
         return maxmin_plain(inc, cap, with_rounds=with_rounds)
@@ -366,6 +378,9 @@ def maxmin_rates_torch(path_links, path_off, link_bw, *, impl: str = "kernel",
     a card takes the plain version unless asked.  ``device=None`` means the
     CUDA card (raises where there is none); pass ``device="cpu"`` for the
     CPU.  Returns numpy float32 [F]."""
+    import torch
+
+    from repro_torch.device import resolve_device
     if impl not in ("ref", "kernel"):
         raise ValueError(f"unknown impl {impl!r} (use 'ref' or 'kernel')")
     dev = resolve_device(device)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from repro_torch.net.flows import FlowSpec
 from repro_torch.workload import collectives as C
+from repro_torch.workload.traffic import Phase
 
 # step: (name, flows) — flows of one step run concurrently, steps run in order
 Step = tuple[str, list[FlowSpec]]
@@ -172,6 +173,18 @@ def allreduce_steps(collective, members, bytes_total, fid, cca="dctcp",
                          f"choose from {sorted(SCHEDULES)}") from None
     return builder(members, bytes_total, fid, cca=cca, tag=tag,
                    topo_meta=topo_meta)
+
+
+def steps_to_phases(steps, deps=None, compute=0.0):
+    """Chain ordered steps into sequential :class:`Phase` objects — step 0
+    takes ``deps`` (and ``compute``), each later step depends on its
+    predecessor."""
+    phases: list[Phase] = []
+    for k, (name, flows) in enumerate(steps):
+        phases.append(Phase(name, flows,
+                            list(deps or []) if k == 0 else [k - 1],
+                            compute if k == 0 else 0.0))
+    return phases
 
 
 def _bucket(members, key):

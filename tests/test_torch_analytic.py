@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.api import RunResult as RefRunResult
+from repro.api import available_backends as ref_available_backends
 from repro.api import run as ref_run
 from repro.api.scenario import training_scenario as ref_training_scenario
 from repro_torch.api import (AnalyticSim, RunResult, Scenario, available_backends,
@@ -104,7 +105,8 @@ def test_engine_takes_no_device_and_needs_no_card(monkeypatch):
         run(scn, backend="analytic", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert run(scn, backend="analytic").fcts
-    assert available_backends() == ("analytic", "fluid", "packet", "wormhole")
+    assert available_backends() == ref_available_backends() == (
+        "analytic", "fluid", "hybrid", "learned", "packet", "wormhole")
 
 
 class RecordingTable(FlowTable):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import available_backends as ref_available_backends
 from repro.api import run as ref_run
 from repro.api import run_many as ref_run_many
 from repro.api.scenario import training_scenario as ref_training_scenario
@@ -273,6 +274,7 @@ def test_run_many_refuses_workers_and_registry_is_the_ports_own():
     scn = Scenario.from_dict(wave_scenario().to_dict())
     with pytest.raises(ValueError, match="workers=2"):
         run_many([scn], backend="fluid", workers=2, device="cpu")
-    assert available_backends() == ("analytic", "fluid", "packet", "wormhole")
-    with pytest.raises(ValueError, match="unknown backend 'hybrid'"):
-        run(scn, backend="hybrid", device="cpu")
+    assert available_backends() == ref_available_backends() == (
+        "analytic", "fluid", "hybrid", "learned", "packet", "wormhole")
+    with pytest.raises(ValueError, match="unknown backend 'ns3'"):
+        run(scn, backend="ns3", device="cpu")

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions; the fluid engine and the serving path through them
-against their CPU runs.
+against their CPU runs; the learned engine's fit and predict on the card
+against the CPU.
 
 Every test here takes the ``cuda`` fixture and skips where there is no
 card.  The file imports no JAX (the machine with the card has none); the
@@ -25,6 +26,8 @@ from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_array
 from repro_torch.kernels.maxmin.ops import plan
 from repro_torch.kernels.steady_scan import steady_scan, steady_scan_plain
 from repro_torch.launch import serve
+from repro_torch.learned import build_dataset, fit, heldout_fct_error
+from repro_torch.learned import model as learned_model
 from repro_torch.models.api import build_model
 from repro_torch.net.fluid import fluid_run
 
@@ -433,3 +436,62 @@ def test_reduced_granite_prefill_on_card_matches_cpu(cuda):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------- #
+# the learned engine's MLP on the card
+# --------------------------------------------------------------------- #
+def _learned_dataset():
+    """tests/test_torch_learned.py's fixture: 16 hybrid flow-fidelity runs
+    as records."""
+    from types import SimpleNamespace
+
+    from repro_torch.api import run_key, scenario_fingerprint
+    records = []
+    for i in range(16):
+        flows = [FlowSpec(fid, i_ % 4, 12 + (i_ % 2), size=8e6 * (0.5 + 0.1 * i),
+                          start=wave, cca="dctcp", tag=f"wave@{wave}")
+                 for fid, (wave, i_) in enumerate((w, k) for w in (0.0, 0.02) for k in range(4))]
+        scn = Scenario(f"tw{i}", TopologySpec("clos", {"n_hosts": 16, "leaf_down": 4,
+                                                       "n_spines": 2}), flows=flows)
+        r = run(scn, backend="hybrid", fidelity="flow")
+        records.append({"key": run_key(scn, "hybrid", {"fidelity": "flow"}),
+                        "backend": "hybrid", "scenario_fingerprint": scenario_fingerprint(scn),
+                        "scenario": scn.to_dict(), "result": r.to_dict()})
+    return build_dataset(SimpleNamespace(records=lambda: iter(records)))
+
+
+def test_learned_predict_on_card_matches_cpu(cuda):
+    ds = _learned_dataset()
+    params = fit(ds, seed=0, hidden=(16, 16), steps=250, device="cpu")
+    X = np.concatenate([ds.X, RNG.normal(size=(300, ds.X.shape[1])) * 3.0])
+    card = learned_model.predict(params, X)
+    cpu = learned_model.predict(params, X, device="cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_learned_fit_on_card_meets_the_bar_and_repeats(cuda):
+    """Two fixed-seed fits on the card are identical, and the fit meets the
+    reference's held-out bar (tests/test_learned.py:125-128)."""
+    ds = _learned_dataset()
+    a = fit(ds, seed=0, hidden=(16, 16), steps=250)
+    b = fit(ds, seed=0, hidden=(16, 16), steps=250)
+    assert a.fingerprint == b.fingerprint
+    assert heldout_fct_error(a, ds) < 0.10
+
+
+def test_learned_engine_runs_on_the_card_by_default(cuda):
+    from repro_torch.api import get_engine
+    ds = _learned_dataset()
+    params = fit(ds, seed=0, hidden=(16, 16), steps=100, device="cpu")
+    scn = Scenario.from_dict({
+        "name": "query", "topology": {"kind": "clos", "params": {
+            "n_hosts": 16, "leaf_down": 4, "n_spines": 2}},
+        "flows": [{"fid": f, "src": f % 4, "dst": 12 + f % 2, "size": 9e6,
+                   "start": 0.02 * (f // 4), "cca": "dctcp", "tag": "q"} for f in range(8)],
+        "kernel": {}, "sim": {}})
+    r = get_engine("learned").run(scn, params=params)
+    assert r.extras["device"] == torch.cuda.get_device_name(cuda)
+    cpu = get_engine("learned").run(scn, params=params, device="cpu")
+    assert r.extras["learned"]["params_fingerprint"] == params.fingerprint
+    np.testing.assert_allclose(list(r.fcts.values()), list(cpu.fcts.values()), rtol=1e-5)

@@ -43,6 +43,10 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "repro_torch.net.packet_sim" in out["modules"]
     assert "repro_torch.core.wormhole" in out["modules"]
     assert "repro_torch.core.memo" in out["modules"]
+    for name in ("net.sharded_sim", "net.hybrid_sim", "learned.dataset", "learned.model",
+                 "learned.fit", "learned.engine", "api.store",
+                 "workload.schedules.pipeline"):
+        assert f"repro_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 

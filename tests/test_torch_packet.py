@@ -140,13 +140,22 @@ def test_packet_and_wormhole_take_no_device(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["packet", "wormhole"])
 def test_sharded_loop_opts_raise_naming_the_roadmap(backend):
-    scn = port_scenario(wave_scenario(0.25))
-    for opts in ({"parallel": "partitions"}, {"intra_workers": 2},
-                 {"parallel": "partitions", "intra_workers": 4, "validate": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            port_api.run(scn, backend=backend, **opts)
+    """The sharded-loop opts once raised NotImplementedError naming the
+    ROADMAP; the loop is ported now, so they run it, with the serial loop's
+    results and the reference's, and only the reference's misuse refusals
+    raise."""
+    ref_scn = wave_scenario(0.25)
+    scn = port_scenario(ref_scn)
+    serial = port_api.run(scn, backend=backend)
+    for opts in ({"parallel": "partitions"},
+                 {"parallel": "partitions", "intra_workers": 2, "validate": True}):
+        port = port_api.run(scn, backend=backend, **opts)
+        ref = ref_api.run(ref_scn, backend=backend, **opts)
+        assert port.fcts == serial.fcts == ref.fcts
+        assert port.events_processed == serial.events_processed == ref.events_processed
+        assert port.extras["shard"] == ref.extras["shard"]
     # the reference's refusals of misuse stay as they are
-    for opts in ({"validate": True}, {"parallel": "lanes"}):
+    for opts in ({"validate": True}, {"parallel": "lanes"}, {"intra_workers": 2}):
         with pytest.raises(ValueError) as ref_err:
             ref_api.run(wave_scenario(0.25), backend=backend, **opts)
         with pytest.raises(ValueError) as port_err:
@@ -512,9 +521,10 @@ def test_link_chaos_out_of_range_and_flow_level_refusals(pkg):
     with pytest.raises(ValueError, match="out of range"):
         pkg.run(bad, backend="packet")
     scn = _wave(pkg).variant(name="ref", chaos=[DEGRADE])
-    # the flow-level backends both packages have (``learned`` is not ported)
-    for backend in ("analytic", "fluid"):
-        opts = pkg.fluid_opts if backend == "fluid" else {}
+    # the flow-level backends (the learned engine refuses before it loads
+    # any params)
+    for backend in ("analytic", "fluid", "learned"):
+        opts = pkg.fluid_opts if backend in ("fluid", "learned") else {}
         with pytest.raises(ValueError, match="no port queues"):
             pkg.run(scn, backend=backend, **opts)
     with pytest.raises(ValueError, match="intra_workers=1"):

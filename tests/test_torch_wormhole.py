@@ -100,21 +100,39 @@ def test_wormhole_run_equal_to_reference(name):
     assert port_db.fingerprint == ref_db.fingerprint
 
 
-def _ci_wormhole_counters(api, make):
+def ci_counters(results: dict, solver_counters: dict | None = None) -> dict:
+    """The counters benchmarks/ci_regression.py takes of one backend's runs
+    of its scenarios (``results``: label -> RunResult, wormhole or hybrid);
+    ``solver_counters`` are the two ``maxmin/*`` counters, read there after
+    the first three scenarios' runs."""
     out = {}
-    for label, mk in CI_SCENARIOS.items():
-        rep = api.run(make(mk()), backend="wormhole").kernel_report
-        out[f"{label}/wormhole/events_processed"] = rep["events_processed"]
-        for k in ("db_hits", "db_lookups", "parks", "replays"):
-            out[f"{label}/wormhole/{k}"] = rep[k]
+    for label, r in results.items():
+        if r.backend == "wormhole":
+            rep = r.kernel_report
+            out[f"{label}/wormhole/events_processed"] = rep["events_processed"]
+            for k in ("db_hits", "db_lookups", "parks", "replays"):
+                out[f"{label}/wormhole/{k}"] = rep[k]
+        else:
+            g, sh = r.extras["granularity"], r.extras["shard"]
+            out[f"{label}/hybrid/events_processed"] = r.events_processed
+            for k in ("packet_lane_events", "demotions", "promotions"):
+                out[f"{label}/hybrid/{k}"] = g[k]
+            for k in ("batched_drains", "max_batch_width"):
+                out[f"{label}/hybrid/{k}"] = sh[k]
+    if solver_counters is not None:
+        out["maxmin/solver_invocations"] = solver_counters["invocations"]
+        out["maxmin/max_flows_per_solve"] = solver_counters["max_flows"]
     return out
 
 
 def test_ci_wormhole_counters_equal_to_reference():
     """The 25 wormhole counters of benchmarks/ci_regression.py, computed by
-    both packages (the packet counter is in tests/test_torch_packet.py)."""
-    ref = _ci_wormhole_counters(ref_api, lambda s: s)
-    port = _ci_wormhole_counters(port_api, port_scenario)
+    both packages (the packet counter is in tests/test_torch_packet.py, the
+    hybrid and maxmin ones in tests/test_torch_hybrid.py)."""
+    ref = ci_counters({label: ref_api.run(mk(), backend="wormhole")
+                       for label, mk in CI_SCENARIOS.items()})
+    port = ci_counters({label: port_api.run(port_scenario(mk()), backend="wormhole")
+                        for label, mk in CI_SCENARIOS.items()})
     assert len(port) == 25 and port == ref
 
 
