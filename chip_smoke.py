@@ -66,7 +66,9 @@ Phases, one JSON line each:
             check that its worker holds no torch;
 9. learned  the learned engine end to end: ``benchmarks/learned_bench.py``'s
             64-scenario wave family (16 sizes x dctcp/hpcc x 16/32 hosts) on
-            ``wormhole`` as ground truth, ``build_dataset`` over its records,
+            ``wormhole`` as ground truth, swept by a durable campaign whose
+            ``export_dataset`` must equal ``build_dataset`` over the same
+            runs' records built by hand,
             ``fit`` on the card (hidden (64, 64), 1200 steps, seed 0; held-out
             mean FCT error under 0.10) twice, which must be identical, and
             once on the CPU from the same initial weights; ``predict`` on the
@@ -75,7 +77,25 @@ Phases, one JSON line each:
             host's feature extraction and the card's ``predict`` timed
             apart; and ``compare()`` of all six backends on a held-out
             scenario, with one fluid_scan per phase;
-10. serve   ``repro_torch.launch.serve.generate`` on granite-3-2b at full
+10. campaign the experiment layer on the card: a durable campaign sweeps
+            gpt@128 at ``scale=1.0`` in 4 size variants on ``fluid`` (as many
+            fluid_scan launches as ``run_many`` over them), is closed and
+            reopened, and the same sweep is 4 cache hits with no launch and
+            the stored records; ``workers=2`` sweeps of wormhole (gpt@128 at
+            1/64, equal to serial ``run()`` bit for bit, then the reopened
+            campaign's SimDB warm) and of fluid (each spawn worker on the
+            card, at the card-vs-CPU bar); the 10 ``campaign/*`` and
+            ``learned/*`` counters of ``benchmarks/ci_regression.py`` (the fit
+            on the card) against ``artifacts/ci_baseline.json``; a store
+            server shared by this process and a ``python -m repro_torch
+            sweep --store`` child over overlapping quickstart variants (exactly
+            N records, equal by key; its ``/metrics``); and the CLI as child
+            processes (``run`` twice, the second a cache hit; ``compare``,
+            ``backends``, ``ls``, ``show``, ``rm``; ``fit`` of the learned
+            phase's campaign on the card, its params naming the card, and the
+            learned engine served from that file); the phase's wall under
+            ``CAMPAIGN_PHASE_WALL_S``; every directory a temporary one;
+11. serve   ``repro_torch.launch.serve.generate`` on granite-3-2b at full
             width and depth in bf16 (seeded weights): batch 4, a 2048-token
             prompt through ``Model.prefill``, then 32 greedy tokens through
             ``Model.decode_step``; exactly 40 ``flash_attention`` launches in
@@ -99,6 +119,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,6 +148,7 @@ CONTINUATION_TOL = 2e-2               # tests/test_archs.py:125
 CARD_CPU_NORMWISE = 1e-3              # max|card - cpu| <= tol * max|cpu|, float32
 WORMHOLE_MEAN_ERR, WORMHOLE_MAX_ERR = 0.01, 0.05   # tests/test_wormhole.py:37-42
 PACKET_PHASE_WALL_S = 300             # the packet phase's whole wall, a guard on the time limit
+CAMPAIGN_PHASE_WALL_S = 180           # likewise for the campaign phase
 LEARNED_HELDOUT_ERR = 0.10            # tests/test_learned.py:125-128
 PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)   # log slowdowns, card vs CPU
 LEARNED_BACKENDS = ("packet", "wormhole", "hybrid", "fluid", "analytic", "learned")
@@ -1014,10 +1036,12 @@ def wave_family(n_sizes: int = 16, ccas=("dctcp", "hpcc"), hosts=(16, 32),
             for i, s in enumerate(np.linspace(0.5, 2.0, n_sizes))]
 
 
-def phase_learned(torch, launches: dict) -> None:
+def phase_learned(torch, launches: dict, camp_dir: pathlib.Path):
+    """Returns the fit on the card; the ground truth's durable campaign
+    stays at ``camp_dir`` for the campaign phase's CLI ``fit``."""
     import types
 
-    from repro_torch.api import compare, get_engine, run, run_key, scenario_fingerprint
+    from repro_torch.api import Campaign, compare, get_engine, run_key, scenario_fingerprint
     from repro_torch.kernels.cca_step import cca_step, fluid_scan
     from repro_torch.kernels.steady_scan import steady_scan
     from repro_torch.learned import build_dataset, encode, fit, flow_table, heldout_fct_error
@@ -1026,14 +1050,19 @@ def phase_learned(torch, launches: dict) -> None:
 
     family = wave_family()
     t0 = time.perf_counter()
-    records = []
-    for s in family:
-        r = run(s, backend="wormhole")
-        records.append({"key": run_key(s, "wormhole", {}), "backend": "wormhole",
-                        "scenario_fingerprint": scenario_fingerprint(s),
-                        "scenario": s.to_dict(), "result": r.to_dict()})
+    with Campaign.open(camp_dir) as camp:
+        truth = camp.sweep(family, backend="wormhole")
+        ds = camp.export_dataset()
     truth_wall = time.perf_counter() - t0
-    ds = build_dataset(types.SimpleNamespace(records=lambda: iter(records)))
+    # the same runs' records built by hand: the campaign's export must equal them
+    records = [{"key": run_key(s, "wormhole", {}), "backend": "wormhole",
+                "scenario_fingerprint": scenario_fingerprint(s),
+                "scenario": s.to_dict(), "result": r.to_dict()}
+               for s, r in zip(family, truth)]
+    hand = build_dataset(types.SimpleNamespace(records=lambda: iter(records)))
+    check(np.array_equal(ds.X, hand.X) and np.array_equal(ds.y, hand.y)
+          and np.array_equal(ds.heldout, hand.heldout) and ds.record_key == hand.record_key,
+          "the campaign's export_dataset differs from the hand-built dataset")
 
     fits, walls = [], []
     for _ in range(2):
@@ -1058,6 +1087,7 @@ def phase_learned(torch, launches: dict) -> None:
           f"predict: card vs CPU max abs err {pred_err}")
     train = params.meta["train"]
     emit("learned", what="fit", host_truth="wormhole on the card machine's CPU",
+         truth="a durable campaign's sweep and export_dataset, equal to the hand-built dataset",
          scenarios=len(family), truth_wall_s=truth_wall, flows=len(ds),
          records=ds.n_records, heldout_records=ds.n_heldout_records,
          fit_walls_s=walls, device=torch.cuda.get_device_name(0),
@@ -1115,6 +1145,291 @@ def phase_learned(torch, launches: dict) -> None:
           "the learned engine left the card")
     emit("learned", what="compare", scenario=scn.name, heldout=True, ood=ood,
          launches=counts, backends=rows)
+    return params
+
+
+# ---------------------------------------------------------------------- #
+# the experiment layer: campaigns, workers, the store service, the CLI
+# ---------------------------------------------------------------------- #
+def make_scenario():
+    """Copy of ``examples/quickstart.py``'s ``make_scenario``: two waves of
+    four contending flows on a small leaf-spine clos."""
+    from repro_torch.api import FlowSpec, Scenario, TopologySpec
+    flows, fid = [], 0
+    for wave_start in (0.0, 0.02):              # the second wave repeats the first
+        for i in range(4):
+            flows.append(FlowSpec(fid, i, 12 + (i % 2), size=8e6,
+                                  start=wave_start, cca="dctcp",
+                                  tag=f"wave@{wave_start}"))
+            fid += 1
+    return Scenario(name="quickstart",
+                    topology=TopologySpec("clos", {"n_hosts": 16, "leaf_down": 4,
+                                                   "n_spines": 2}),
+                    flows=flows)
+
+
+def sweep_kinds(camp, scenarios, **kw):
+    """A campaign sweep with the kinds of its events, in order."""
+    kinds = []
+    cb = camp.subscribe(lambda e: kinds.append(e.kind))
+    try:
+        return camp.sweep(scenarios, **kw), kinds
+    finally:
+        camp.unsubscribe(cb)
+
+
+def cli(*args, timeout: float = 300) -> subprocess.CompletedProcess:
+    """``python -m repro_torch ARGS`` in a child process; fails on a non-zero exit."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch", *args], env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0, f"python -m repro_torch {' '.join(args)} exited "
+          f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return out
+
+
+def masked(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "wall_time"}
+
+
+def ci_counter_check(counters: dict) -> dict:
+    """The counters against ``artifacts/ci_baseline.json`` with its own
+    tolerances (exact but for ``learned/heldout_err_ppm``)."""
+    base = json.loads((ROOT / "artifacts" / "ci_baseline.json").read_text())
+    rows = {}
+    for name, new in counters.items():
+        old = base["counters"][name]
+        tol = base["tolerances"].get(name, base["default_tolerance"])
+        allowed = max(tol.get("abs", 0), tol.get("rel", 0.0) * abs(old))
+        check(abs(new - old) <= allowed, f"CI counter {name}: {new}, baseline {old} ± {allowed}")
+        rows[name] = dict(port=new, baseline=old, allowed=allowed)
+    return rows
+
+
+def phase_campaign(torch, launches: dict, work: pathlib.Path, truth_dir: pathlib.Path,
+                   params) -> None:
+    """The experiment layer on the card: a durable fluid sweep at full width
+    and its resume, spawn workers, the 10 campaign/learned CI counters, the
+    store service between two hosts, and the CLI."""
+    from repro_torch.api import (Campaign, RunResult, Scenario, StoreServer, run, run_key,
+                                 run_many, training_scenario)
+    from repro_torch.api.store import RunStore
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
+    from repro_torch.kernels.steady_scan import steady_scan
+    from repro_torch.learned import fit, heldout_fct_error
+    from repro_torch.learned import model as M
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+
+    # 1. a durable fluid sweep of gpt@128 at full width, then its resume
+    full = training_scenario(n_gpus=128, scale=1.0)
+    variants = [full.variant(name=f"gpt@128-x{s:g}", size_scale=s) for s in (1.0, 1.05, 1.1, 1.2)]
+    fluid_scan.launches = 0
+    plain = run_many(variants, backend="fluid")
+    torch.cuda.synchronize()
+    run_many_launches = fluid_scan.launches
+    cdir = work / "fluid-sweep"
+    cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
+    t0 = time.perf_counter()
+    with Campaign.open(cdir) as camp:
+        cold, kinds = sweep_kinds(camp, variants, backend="fluid")
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    counts = dict(fluid_scan=fluid_scan.launches, steady_scan=steady_scan.launches,
+                  cca_step=cca_step.launches)
+    check(counts == dict(fluid_scan=run_many_launches, steady_scan=0, cca_step=0)
+          and run_many_launches > 0,
+          f"durable fluid sweep: launches {counts}, run_many over the same 4: {run_many_launches}")
+    launches["fluid_scan"] += counts["fluid_scan"]
+    check(kinds.count("finished") == 4 and all(finite_fcts(r) for r in cold)
+          and [r.fcts for r in cold] == [r.fcts for r in plain],
+          f"durable fluid sweep: events {kinds}, or FCTs other than run_many's")
+    fluid_scan.launches = 0
+    t0 = time.perf_counter()
+    with Campaign.open(cdir) as camp:
+        warm, kinds = sweep_kinds(camp, variants, backend="fluid")
+        stored = {rec["scenario"]["name"]: rec["result"] for rec in camp.records()}
+    warm_wall = time.perf_counter() - t0
+    check(kinds == ["cache_hit"] * 4 and fluid_scan.launches == 0,
+          f"reopened fluid sweep: events {kinds}, {fluid_scan.launches} fluid_scan launches")
+    check([r.to_dict() for r in warm] == [stored[v.name] for v in variants],
+          "reopened fluid sweep: results differ from the stored records")
+    emit("campaign", what="durable fluid sweep", scenario=full.name,
+         variants=[v.name for v in variants], launches=counts,
+         run_many_launches=run_many_launches, cold_wall_s=cold_wall,
+         reopened_wall_s=warm_wall, reopened_events=kinds, reopened_launches=0,
+         iteration_times=[r.iteration_time for r in cold], device=cold[0].extras["device"])
+
+    # 2. spawn workers: wormhole, then the SimDB warm on reopen, then fluid
+    small = training_scenario(n_gpus=128, scale=1 / 64)
+    wv = [small.variant(name=f"gpt@128/64-x{s:g}", size_scale=s) for s in (1.0, 1.05, 1.1)]
+    wdir = work / "wormhole-workers"
+    t0 = time.perf_counter()
+    with Campaign.open(wdir) as camp:
+        par = camp.sweep(wv, backend="wormhole", workers=2)
+        db_entries = len(camp.db)
+    par_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [run(s, backend="wormhole") for s in wv]
+    serial_wall = time.perf_counter() - t0
+    check(all(list(p.fcts.items()) == list(s.fcts.items())
+              and p.events_processed == s.events_processed for p, s in zip(par, serial)),
+          "wormhole workers=2: FCTs or events differ from serial run()")
+    more = [small.variant(name=f"gpt@128/64-x{s:g}", size_scale=s) for s in (1.15, 1.2)]
+    with Campaign.open(wdir) as camp:
+        reopened_db = len(camp.db)
+        warm_runs = camp.sweep(more, backend="wormhole")
+    hits = [r.kernel_report["run_db_hits"] for r in warm_runs]
+    check(reopened_db == db_entries > 0 and sum(hits) > 0,
+          f"reopened campaign: SimDB {reopened_db} entries (saved {db_entries}), hits {hits}")
+    two = variants[:2]
+    t0 = time.perf_counter()
+    fpar = Campaign.in_memory().sweep(two, backend="fluid", workers=2)
+    fpar_wall = time.perf_counter() - t0
+    fserial = [run(s, backend="fluid") for s in two]
+    errs = [compare_results(p, s, f"fluid workers=2 {s.scenario}") for p, s in zip(fpar, fserial)]
+    check(all(r.extras["device"] == card for r in fpar), "a fluid spawn worker left the card")
+    emit("campaign", what="spawn workers", host="the card machine's CPU",
+         wormhole=dict(scenario=small.name, variants=len(wv), workers=2, wall_s=par_wall,
+                       serial_wall_s=serial_wall, events=[r.events_processed for r in par],
+                       equal_to_serial=True, db_entries=db_entries),
+         reopened=dict(db_entries=reopened_db, run_db_hits=hits,
+                       events=[r.events_processed for r in warm_runs]),
+         fluid=dict(scenario=full.name, variants=len(two), workers=2, wall_s=fpar_wall,
+                    device=fpar[0].extras["device"],
+                    max_fct_rel_err=max(e["max_fct_rel_err"] for e in errs),
+                    bit_equal=[p.fcts == s.fcts for p, s in zip(fpar, fserial)]))
+
+    # 3. the 10 campaign/* and learned/* counters of benchmarks/ci_regression.py
+    q = make_scenario()
+    qv = [q.variant(name=f"ci-{s:g}", size_scale=s) for s in (1.0, 1.05, 1.1)]
+    with Campaign.open(work / "ci", name="ci") as camp:
+        camp.sweep(qv, backend="wormhole")
+        camp.sweep(qv, backend="wormhole")
+        counters = {"campaign/store_hits": camp.store.hits,
+                    "campaign/store_misses": camp.store.misses,
+                    "campaign/runs_committed": len(camp.store),
+                    "campaign/db_entries": len(camp.db)}
+    family = [wave_scenario(float(s), base_size=4e5, name=f"ci-learned-{i}")
+              for i, s in enumerate([0.5 + 0.08 * k for k in range(20)])]
+    with Campaign.in_memory(name="ci-learned") as camp:
+        camp.sweep(family, backend="wormhole")
+        ds = camp.export_dataset()
+    ci_fit = fit(ds, seed=0, steps=400)
+    err = heldout_fct_error(ci_fit, ds)
+    counters.update({
+        "learned/train_records": ds.n_records - ds.n_heldout_records,
+        "learned/heldout_records": ds.n_heldout_records,
+        "learned/train_flows": int((~ds.heldout).sum()),
+        "learned/heldout_flows": int(ds.heldout.sum()),
+        "learned/heldout_err_ppm": -1 if err != err else int(round(err * 1e6)),
+        "learned/err_under_10pct": int(err == err and err < 0.10)})
+    emit("campaign", what="CI counters", fit_device=ci_fit.meta["train"]["device"],
+         counters=ci_counter_check(counters))
+
+    # 4. the store service: this process and a CLI child sweep overlapping sets
+    server = StoreServer(work / "served", port=0).start()
+    try:
+        files = []
+        for i in range(8):
+            f = work / f"q{i}.json"
+            f.write_text(q.variant(name=f"svc-{i}", size_scale=1.0 + 0.05 * i).to_json())
+            files.append(f)
+        env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"),
+                   PYTHONUNBUFFERED="1")
+        host_b = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch", "sweep", *map(str, files[2:]),
+             "--backend", "wormhole", "--store", server.url],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # B claims its whole set when its sweep starts; A starts after
+            # that, so A runs only what B left and waits on B's claims
+            b_first = host_b.stdout.readline()
+            check("running" in b_first, f"host B did not start: {b_first!r}")
+            mine = [Scenario.from_json(f.read_text()) for f in files[:6]]
+            with Campaign.open(server.url) as camp:
+                res_a, kinds_a = sweep_kinds(camp, mine, backend="wormhole", poll=0.05)
+            b_out, b_err = host_b.communicate(timeout=300)
+            b_out = b_first + b_out
+            with server.lock:
+                metrics = server.metrics_payload()
+        finally:
+            if host_b.poll() is None:
+                host_b.kill()
+                host_b.wait()
+        check(host_b.returncode == 0, f"host B exited {host_b.returncode}: {b_err[-2000:]}")
+        store = RunStore(work / "served" / "runs")
+        everyone = [Scenario.from_json(f.read_text()) for f in files]
+        keys = [run_key(s, "wormhole", {}) for s in everyone]
+        check(sorted(store.keys()) == sorted(keys) and store.corrupt_keys() == [],
+              f"served store holds {len(store.keys())} records, expected {len(keys)}")
+        # whichever host ran a key, the other read its record: A's results
+        # are the served records, so B's results (the records) are A's
+        for s, key, a in zip(everyone, keys, res_a):
+            check(masked(store.get(key)["result"])
+                  == json.loads(json.dumps(masked(a.to_dict()))),
+                  f"{s.name}: the served record differs from host A's result")
+        check(all(finite_fcts(RunResult.from_dict(store.get(k)["result"])) for k in keys),
+              "a served record has bad FCTs")
+    finally:
+        server.shutdown()
+    emit("campaign", what="store service", hosts=2, records=len(keys),
+         host_a_events={k: kinds_a.count(k) for k in ("started", "finished", "cache_hit")},
+         host_b=b_out.strip().splitlines()[-1],
+         metrics={k: metrics[k] for k in ("claim_creates", "claim_rejects", "claim_steals",
+                                          "claim_releases", "dedup_hits", "store_hit_rate",
+                                          "simdb_replay_rate", "runs", "db_entries")})
+
+    # 5. the CLI on the card, each command a child process
+    cdir = str(work / "cli")
+    walls = {}
+    for attempt in ("first", "second"):
+        t0 = time.perf_counter()
+        out = cli("run", "gpt@128", "--scale", "1", "--backend", "fluid", "-c", cdir)
+        walls[f"run {attempt}"] = time.perf_counter() - t0
+    check("cache hit" in out.stdout, f"the second CLI run was no cache hit:\n{out.stdout}")
+    t0 = time.perf_counter()
+    cmp_out = cli("compare", "gpt@128", "--scale", "1/64", "--backends",
+                  "wormhole,fluid,analytic", "-c", cdir)
+    walls["compare"] = time.perf_counter() - t0
+    check(all(b in cmp_out.stdout for b in ("wormhole", "fluid", "analytic")),
+          f"CLI compare printed no table:\n{cmp_out.stdout}")
+    backends = cli("backends").stdout
+    listed = cli("ls", "-c", cdir).stdout
+    check("4 stored runs" in listed, f"CLI ls:\n{listed}")
+    key = next(ln.split()[0] for ln in listed.splitlines() if " fluid " in ln)
+    shown = json.loads(cli("show", key, "-c", cdir).stdout)
+    check(shown["backend"] == "fluid" and shown["result"]["extras"]["device"] == card,
+          f"CLI show: {shown['backend']} on {shown['result']['extras'].get('device')}")
+    check("removed 1" in cli("rm", key, "-c", cdir).stdout
+          and "3 stored runs" in cli("ls", "-c", cdir).stdout, "CLI rm")
+    out_params = work / "params.json"
+    t0 = time.perf_counter()
+    fit_out = cli("fit", str(truth_dir), "--steps", "1200", "--out", str(out_params))
+    walls["fit"] = time.perf_counter() - t0
+    cli_params = M.load(out_params)
+    truth = Campaign.open(truth_dir)
+    ds = truth.export_dataset()
+    truth.close()
+    cli_err = heldout_fct_error(cli_params, ds)
+    check(cli_params.meta["train"]["device"] == card,
+          f"CLI fit ran on {cli_params.meta['train']['device']}, not the card")
+    check(cli_err < LEARNED_HELDOUT_ERR, f"CLI fit: held-out error {cli_err}")
+    served = run(wave_scenario(1.0, name="served-from-file"), backend="learned",
+                 params=str(out_params), ood="warn")
+    check(finite_fcts(served) and served.extras["device"] == card
+          and served.extras["learned"]["params_fingerprint"] == cli_params.fingerprint,
+          "the learned engine did not serve from the CLI's params on the card")
+    emit("campaign", what="CLI", walls_s=walls,
+         backends=[ln.split()[0] for ln in backends.splitlines()[1:]],
+         fit=dict(line=[ln for ln in fit_out.stdout.splitlines() if ln.startswith("fit:")],
+                  device=cli_params.meta["train"]["device"], heldout_fct_err=cli_err,
+                  fingerprint=cli_params.fingerprint, in_process_fingerprint=params.fingerprint,
+                  match=cli_params.fingerprint == params.fingerprint))
+
+    wall = time.perf_counter() - t_phase
+    emit("campaign", what="phase", phase_wall_s=wall)
+    check(wall < CAMPAIGN_PHASE_WALL_S, f"campaign phase took {wall} s")
 
 
 def normwise(a, b) -> dict:
@@ -1323,7 +1638,10 @@ def main() -> int:
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
     analytic_iters = phase_analytic(torch, scenarios, recorded, launches)
     phase_packet(torch, launches, fluid_iters, analytic_iters)
-    phase_learned(torch, launches)
+    with tempfile.TemporaryDirectory() as td:
+        work = pathlib.Path(td)
+        params = phase_learned(torch, launches, work / "truth")
+        phase_campaign(torch, launches, work, work / "truth", params)
     phase_serve(torch, launches)
 
     k1 = rows[("fluid_scan", "moe@1024")]

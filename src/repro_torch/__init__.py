@@ -24,7 +24,13 @@ numbers.  What runs so far:
   ``maxmin_rates_torch`` through the ``maxmin`` kernel;
 - the architecture zoo's serving path for the dense-attention models
   (``repro_torch.models``, ``python -m repro_torch.launch.serve``), with
-  full-sequence attention through the ``flash_attention`` kernel.
+  full-sequence attention through the ``flash_attention`` kernel;
+- the experiment layer: durable, resumable campaigns over a
+  content-addressed run store (``repro_torch.api.Campaign``), sweeps fanned
+  over spawn workers, a store service shared between hosts, and the CLI
+  (``python -m repro_torch {run,sweep,compare,serve,ls,show,rm,backends,
+  fit,lint}``).  Records have the reference's format and keys, but a
+  campaign directory or a store server belongs to one package.
 
 Entry points that use the card run on it unless the caller passes
 ``device="cpu"``; the host-only backends (``packet``, ``wormhole``,

@@ -1,7 +1,9 @@
 """Engine protocol + registry of the port's backends.
 
-The port has its own registry, under the reference's engine names, and no
-run store: nothing keys a result by backend name across the two packages.
+The port has its own registry, under the reference's engine names.  Its
+run store keys results by backend name with the reference's hash, so a
+campaign directory or a store server belongs to one package
+(``repro_torch.api.campaign``, ``repro_torch.api.serve``).
 
     packet    per-packet DES oracle (the ns-3 stand-in), on the host
     wormhole  the same oracle under the memoizing/fast-forwarding kernel,
@@ -33,10 +35,7 @@ from repro_torch.api.results import RunResult
 from repro_torch.api.scenario import Scenario
 from repro_torch.core.memo import SimDB
 from repro_torch.core.wormhole import WormholeConfig, WormholeKernel
-from repro_torch.device import device_name, resolve_device
 from repro_torch.net import chaos as chaos_mod
-from repro_torch.net.fluid import (FluidScenario, fluid_converged_rates,
-                                   sweep_converged_rates)
 from repro_torch.net.hybrid_sim import FIDELITIES, HybridConfig, HybridKernel, HybridSim
 from repro_torch.net.packet_sim import PacketSim
 from repro_torch.net.sharded_sim import ShardedPacketSim
@@ -76,13 +75,17 @@ class Engine:
 
     ``option_names`` declares the opts ``run`` accepts; :meth:`check_opts`
     rejects anything else with one error naming the accepted set, so a
-    typoed opt fails loudly instead of being swallowed by ``**opts``."""
+    typoed opt fails loudly instead of being swallowed by ``**opts``.  An
+    engine that declares none (a third-party engine registered later)
+    stays unvalidated, as in the reference."""
     name = "abstract"
     uses_db = False
-    option_names: tuple[str, ...] = ()
+    option_names: tuple[str, ...] | None = None
 
     def check_opts(self, opts: dict) -> None:
         """Raise ValueError on any opt this backend does not accept."""
+        if self.option_names is None:
+            return
         unknown = sorted(set(opts) - set(self.option_names))
         if unknown:
             raise ValueError(
@@ -108,6 +111,8 @@ class FluidEngine(Engine):
 
     def run(self, scenario: Scenario, steps: int = 200, dt: float | None = None,
             device=None, **opts) -> RunResult:
+        from repro_torch.device import device_name, resolve_device
+        from repro_torch.net.fluid import FluidScenario, fluid_converged_rates
         dev = resolve_device(device)
         chaos_mod.check_backend(chaos_mod.plan_for(scenario), self.name)
         topo = scenario.build_topology()
@@ -147,6 +152,8 @@ class FluidEngine(Engine):
                   dt: float | None = None, device=None, **opts) -> list[RunResult]:
         """Pad + batch: one run evaluates every flow scenario's converged
         rates at once (workload scenarios fall back to a loop)."""
+        from repro_torch.device import device_name, resolve_device
+        from repro_torch.net.fluid import FluidScenario, sweep_converged_rates
         dev = resolve_device(device)
         for s in scenarios:
             chaos_mod.check_backend(chaos_mod.plan_for(s), self.name)

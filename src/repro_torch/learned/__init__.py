@@ -7,16 +7,16 @@ trains a small MLP on them with ``torch.autograd`` on the CUDA card (or the
 CPU when asked), ``model.save``/``load`` persist versioned params in the
 reference's format, and ``LearnedEngine`` (registered as the sixth backend
 family, ``"learned"``) serves batched what-if queries from the fit on the
-card.  The port has no run store or campaign yet, so ``build_dataset``
-takes any object whose ``records()`` yields store records:
+card:
 
-    records = [{"key": run_key(s, "hybrid", opts), "backend": "hybrid",
-                "scenario_fingerprint": scenario_fingerprint(s),
-                "scenario": s.to_dict(), "result": r.to_dict()}, ...]
-    ds = build_dataset(types.SimpleNamespace(records=lambda: iter(records)))
-    params = fit(ds, seed=0)                         # dataset -> model
+    camp = Campaign.open("experiments/truth")
+    camp.sweep(variants, backend="wormhole")         # packet-level truth
+    params = fit(camp.export_dataset(), seed=0)      # dataset -> model
     model.save(params, "artifacts/learned_params.json")
     compare(scn, backends=["learned"], params="artifacts/learned_params.json")
+
+or, from the shell, ``python -m repro_torch fit DIR --out PATH`` (the card
+unless ``--device cpu``; the params record the device that fitted them).
 """
 from repro_torch.learned import model
 from repro_torch.learned.dataset import (

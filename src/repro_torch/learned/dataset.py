@@ -1,10 +1,11 @@
 """Training datasets extracted from stores of packet-level runs (m4-style).
 
-Copy of ``repro.learned.dataset``, which the port may not import.  The port
-has no run store or campaign yet: :func:`build_dataset` takes any object
-whose ``records()`` yields store records (``key``, ``backend``,
-``scenario_fingerprint``, ``scenario``, ``result``), keyed with
-:func:`repro_torch.api.store.run_key`, which hashes as the reference's.
+Copy of ``repro.learned.dataset``, which the port may not import.
+:func:`build_dataset` reads a port campaign (``Campaign.export_dataset``)
+or any object whose ``records()`` yields store records (``key``,
+``backend``, ``scenario_fingerprint``, ``scenario``, ``result``), keyed
+with :func:`repro_torch.api.store.run_key`, which hashes as the
+reference's, so the split is the reference's record for record.
 
 A campaign's content-addressed run store already *is* a labeled dataset: every record pairs a canonical scenario JSON with
 the :class:`RunResult` an engine produced for it.  This module closes the

@@ -16,8 +16,8 @@ queries per second out of one process (``benchmarks/learned_bench.py``).
 
 Guard rails:
 
-* no fitted params -> a clear error naming how to fit them (the port has
-  no CLI yet: ``repro_torch.learned.fit`` and ``model.save``);
+* no fitted params -> a clear error naming how to fit them
+  (``python -m repro_torch fit DIR``);
 * out-of-distribution queries — numeric features outside the training
   envelope, or categories (CCA / topology class) outside the fitted
   vocabulary — raise :class:`OutOfDistributionError` by default
@@ -40,7 +40,6 @@ import numpy as np
 from repro_torch.api.engines import Engine, register_engine
 from repro_torch.api.results import RunResult
 from repro_torch.api.scenario import Scenario
-from repro_torch.device import device_name, resolve_device
 from repro_torch.learned import dataset as D
 from repro_torch.net import chaos
 
@@ -75,10 +74,9 @@ def load_params(params):
     path = os.fspath(params)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"no fitted learned-engine params at {path!r} — fit one on "
-            f"packet/wormhole/hybrid runs with `repro_torch.learned.fit("
-            f"build_dataset(source))` and save it with "
-            f"`repro_torch.learned.model.save(params, {path!r})`, or pass "
+            f"no fitted learned-engine params at {path!r} — fit one on a "
+            f"campaign of packet/wormhole/hybrid runs with "
+            f"`python -m repro_torch fit DIR --out {path}`, or pass "
             f"params=<path|LearnedParams>")
     st = os.stat(path)
     key = (os.path.abspath(path), st.st_size, st.st_mtime_ns,
@@ -162,6 +160,7 @@ class LearnedEngine(Engine):
     def run_batch(self, scenarios: list[Scenario],
                   params=DEFAULT_PARAMS_PATH, ood: str = "error",
                   device=None, **opts) -> list[RunResult]:
+        from repro_torch.device import device_name, resolve_device
         dev = resolve_device(device)
         if ood not in ("error", "warn", "ignore"):
             raise ValueError(f"unknown ood policy {ood!r} "

@@ -44,7 +44,7 @@ def fit(dataset: Dataset, *, seed: int = 0, hidden: tuple[int, ...] = (64, 64),
     """
     import torch
 
-    from repro_torch.device import resolve_device
+    from repro_torch.device import device_name, resolve_device
     dev = resolve_device(device)
 
     def tensor(a):
@@ -125,6 +125,9 @@ def fit(dataset: Dataset, *, seed: int = 0, hidden: tuple[int, ...] = (64, 64),
         "envelope_hi": [float(v) for v in dataset.X[tr][:, :n_num].max(0)],
         "train": {
             "seed": seed, "lr": lr, "steps": steps_run,
+            # a fit on the card is not the CPU's (summation order), so the
+            # params file names the device that fitted it
+            "device": device_name(dev),
             "best_step": best_step,
             "records": dataset.n_records,
             "heldout_records": dataset.n_heldout_records,

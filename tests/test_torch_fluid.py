@@ -271,10 +271,22 @@ def test_run_without_device_refuses_to_leave_the_card(monkeypatch):
 
 
 def test_run_many_refuses_workers_and_registry_is_the_ports_own():
-    scn = Scenario.from_dict(wave_scenario().to_dict())
-    with pytest.raises(ValueError, match="workers=2"):
-        run_many([scn], backend="fluid", workers=2, device="cpu")
+    """(Named when the port refused ``workers``.)  ``workers=2`` fans the
+    sweep over spawn workers that resolve ``fluid`` in the port's registry:
+    each scenario as a stand-alone ``run()``, equal to the serial runs at
+    the card-vs-CPU bar."""
+    scns = [Scenario.from_dict(wave_scenario(s, name=f"w{s:g}").to_dict())
+            for s in (1.0, 1.2, 1.4)]
+    par = run_many(scns, backend="fluid", workers=2, device="cpu")
+    assert [r.scenario for r in par] == [s.name for s in scns]
+    for p, s in zip(par, scns):
+        serial = run(s, backend="fluid", device="cpu")
+        assert list(p.fcts) == list(serial.fcts)
+        for fid, fct in serial.fcts.items():
+            assert p.fcts[fid] == pytest.approx(fct, rel=RTOL)
+        assert p.iteration_time == pytest.approx(serial.iteration_time, rel=RTOL)
+        assert p.extras["device"] == "cpu"
     assert available_backends() == ref_available_backends() == (
         "analytic", "fluid", "hybrid", "learned", "packet", "wormhole")
     with pytest.raises(ValueError, match="unknown backend 'ns3'"):
-        run(scn, backend="ns3", device="cpu")
+        run(scns[0], backend="ns3", device="cpu")

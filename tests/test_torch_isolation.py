@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package ``repro``."""
+``chip_smoke.py``, imports JAX or anything of the JAX package ``repro``;
+and its experiment layer (store, campaigns, service, CLI), like the
+reference's, loads no torch, nor does a spawn worker of a host backend."""
 import json
 import os
 import pathlib
@@ -44,8 +46,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "repro_torch.core.wormhole" in out["modules"]
     assert "repro_torch.core.memo" in out["modules"]
     for name in ("net.sharded_sim", "net.hybrid_sim", "learned.dataset", "learned.model",
-                 "learned.fit", "learned.engine", "api.store",
-                 "workload.schedules.pipeline"):
+                 "learned.fit", "learned.engine", "api.store", "api.campaign",
+                 "api.serve", "__main__", "workload.schedules.pipeline"):
         assert f"repro_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -58,3 +60,39 @@ def test_no_source_line_imports_jax_or_reference():
                  if BANNED_LINE.match(line)]
     assert len(files) > 20
     assert offenders == []
+
+
+TORCH_FREE_PROBE = """
+import json, multiprocessing, sys
+from concurrent.futures import ProcessPoolExecutor
+import repro_torch.api.store, repro_torch.api.campaign, repro_torch.api.serve
+import repro_torch.__main__
+from repro_torch.api import training_scenario
+from repro_torch.api.campaign import _worker_run
+parent = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax"))
+scn = training_scenario(n_gpus=32, scale=1 / 256).to_dict()
+ctx = multiprocessing.get_context("spawn")
+with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
+    result, _, _ = pool.submit(_worker_run, scn, "analytic", None, {}).result()
+    worker = pool.submit(eval, "sorted(m for m in __import__('sys').modules "
+                               "if m.split('.')[0] in ('torch', 'jax', 'repro', 'repro_torch'))"
+                         ).result()
+print(json.dumps({"parent": parent, "worker": worker,
+                  "iteration": result.iteration_time}))
+"""
+
+
+def test_experiment_layer_and_host_workers_load_no_torch():
+    """``import repro_torch.api.{store,campaign,serve}`` and
+    ``repro_torch.__main__`` load no torch (so ``ls``/``show``/``rm`` and the
+    store server do not pay for it), and a campaign's spawn worker that
+    has run an ``analytic`` scenario holds only ``repro_torch`` modules."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", TORCH_FREE_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["parent"] == []
+    assert "repro_torch.api.campaign" in out["worker"]
+    assert all(m.split(".")[0] == "repro_torch" for m in out["worker"]), out["worker"]
+    assert out["iteration"] > 0

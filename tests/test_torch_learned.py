@@ -214,6 +214,23 @@ def test_params_files_load_in_the_other_package(tmp_path, saver, params, ref_par
         assert port_engine.load_params(path).fingerprint == p.fingerprint
 
 
+def test_params_file_records_the_fitting_device(tmp_path, params):
+    """``meta["train"]["device"]`` names where the fit ran; the fingerprint
+    covers it, and the file still loads in the reference."""
+    assert params.meta["train"]["device"] == "cpu"
+    path = tmp_path / "p.json"
+    port_model.save(params, path)
+    back = ref_model.load(path)
+    assert back.fingerprint == params.fingerprint
+    assert back.meta["train"]["device"] == "cpu"
+    meta = json.loads(path.read_text())
+    meta["train"]["device"] = "NVIDIA H100 80GB HBM3"
+    path.write_text(json.dumps(meta))
+    for model in (port_model, ref_model):
+        with pytest.raises(ValueError, match="fingerprint"):
+            model.load(path)
+
+
 def test_engine_run_equal_to_reference(tmp_path, ref_params):
     path = tmp_path / "ref.json"
     ref_model.save(ref_params, path)
@@ -252,6 +269,7 @@ def test_fit_from_the_reference_init_follows_its_trajectory(monkeypatch, records
         np.testing.assert_allclose(b0, b1, rtol=0, atol=1e-6)
     assert port.weights[0][0].shape == (d, 16)
     pt, rt = port.meta.pop("train"), ref.meta.pop("train")
+    assert pt.pop("device") == "cpu"          # the port's params name their device
     for k in ("train_mse", "heldout_mse"):
         assert pt.pop(k) == pytest.approx(rt.pop(k), rel=1e-3)
     assert pt == rt
@@ -381,7 +399,7 @@ def test_load_refuses_mismatched_weights(tmp_path, params, dataset):
 
 
 def test_missing_params_is_a_clear_error(tmp_path):
-    with pytest.raises(FileNotFoundError, match=r"repro_torch\.learned\.fit"):
+    with pytest.raises(FileNotFoundError, match=r"python -m repro_torch fit"):
         get_engine("learned").run(wave_scenario(), params=tmp_path / "nope.json", **CPU)
 
 
