@@ -26,10 +26,12 @@ Phases, one JSON line each:
             regime (one cluster, or the cooperative grid) and the kernels a
             solve launches;
             ``flash_attention`` at the reference test's shapes (float32 and
-            bf16), its convex-hull property, and granite-3-2b's prefill
-            shape, each with the device time of the kernel, of its plain
-            version and of PyTorch's ``scaled_dot_product_attention`` (the
-            library yardstick, which the port never calls);
+            bf16), its convex-hull property, granite-3-2b's prefill shape
+            and the zoo's (whisper's bidirectional encoder, gemma3's
+            1024-token and mixtral's 4096-token windows), each with the
+            device time of the kernel, of its plain version and of
+            PyTorch's ``scaled_dot_product_attention`` (the library
+            yardstick, which the port never calls);
 4. e2e      ``repro_torch.api.run(..., backend="fluid")`` at full width and
             real flow bytes (``scale=1.0``) for gpt@128 and moe@128 on the
             card, held against the same call on the CPU, and moe@1024 on the
@@ -104,7 +106,24 @@ Phases, one JSON line each:
             decode-after-prefill continuation at full width and depth in
             float32 (rtol 2e-2, on weights whose attention is not chaotic:
             see ``phase_serve``), and the card against the CPU at full width
-            with 2 layers in float32 (prefill logits and cache).
+            with 2 layers in float32 (prefill logits and cache);
+12. zoo     the rest of the architecture zoo at full width in bf16 (seeded
+            weights; depth cut only where the weights would not fit, and
+            printed): gemma3-27b (62 layers, a 1024-token local window
+            under a 2048-token prompt), mixtral-8x22b (2 layers, MoE, window
+            4096 under 4608 tokens), deepseek-v3-671b (4 layers: MLA and a
+            256-expert MoE with its shared expert), jamba-v0.1-52b (8
+            layers: Mamba, attention, MoE), xlstm-125m (mLSTM, sLSTM),
+            whisper-large-v3 (1500 audio frames through the bidirectional
+            encoder, a 64-token decoder prompt) and llava-next-34b (8
+            layers, 576 patch embeddings); each one prefill and 16 greedy
+            tokens twice, with finite logits, tokens in the vocabulary,
+            identical tokens in both runs and one ``flash_attention`` launch
+            per self-attention layer in prefill and none in decode; prefill
+            s, decode ms/token and peak memory beside the card's name and
+            power limit; then all ten registered architectures' reduced
+            configs in float32, card against CPU (norm-wise 1e-4; MoE at
+            the reference's continuation bar).
 
 Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -143,6 +162,10 @@ E2E_RTOL = 1e-4                       # FCTs, card vs CPU
 K2_RTOL = 1e-4                        # dense float32 solver vs the exact one (tests/test_maxmin.py)
 K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # tests/test_kernels.py flash bars
           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# bf16 besides: each output row's largest error within 2e-2 of that row's
+# largest |ref|, so rows that average over thousands of keys (outputs near
+# 0.03) are held to their own scale and not only to the atol
+K4_ROW_RTOL = 2e-2
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW = "granite-3-2b", 4, 2048, 32
 CONTINUATION_TOL = 2e-2               # tests/test_archs.py:125
 CARD_CPU_NORMWISE = 1e-3              # max|card - cpu| <= tol * max|cpu|, float32
@@ -508,9 +531,21 @@ def attention_pairs(S: int, causal: bool, window: int | None) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def attention_mask(torch, S: int, causal: bool, window: int | None):
+    """attention_plain's mask as SDPA's boolean ``attn_mask`` (True attends)."""
+    i = torch.arange(S, device="cuda")
+    mask = torch.ones(S, S, dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    return mask
+
+
 def flash_kernels(torch, rows: dict) -> None:
-    """K4 against its plain version on the card; SDPA timed beside it where
-    it computes the same function (no window)."""
+    """K4 against its plain version on the card, and SDPA timed beside it:
+    ``is_causal`` where there is no window, a boolean band mask where there
+    is one."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
@@ -531,6 +566,9 @@ def flash_kernels(torch, rows: dict) -> None:
          None, torch.bfloat16),
         ("bf16 1x4/2x256x64 window 128", (1, 4, 2, 256, 64), True, 128, torch.bfloat16),
         ("bf16 1x4/4x200x64 ragged", (1, 4, 4, 200, 64), True, None, torch.bfloat16),
+        # every prefill shape of the zoo phase (ZOO_K4_CASES)
+        *((name, shape, causal, window, torch.bfloat16)
+          for name, (shape, causal, window, _) in ZOO_K4_CASES.items()),
     ]
     for name, (B, Hq, Hk, S, D), causal, window, dtype in cases:
         q = torch.randn(B, Hq, S, D, generator=gen, device="cuda").to(dtype)
@@ -545,6 +583,11 @@ def flash_kernels(torch, rows: dict) -> None:
         row = dict(kernel="flash_attention", case=name, shape=[B, Hq, Hk, S, D],
                    causal=causal, window=window, dtype=str(dtype), max_abs_err=abs_err,
                    max_rel_err=rel_err, tolerance=tol, ok=ok)
+        if dtype == torch.bfloat16:
+            row_err = ((out.float() - ref.float()).abs().amax(-1)
+                       / ref.float().abs().amax(-1).clamp_min(1e-30))
+            row.update(max_row_rel_err=float(row_err.max()), row_rtol=K4_ROW_RTOL)
+            ok = ok and float(row_err.max()) <= K4_ROW_RTOL
         if name.startswith("f32 1x2/2x128x64"):       # tests/test_kernels.py:168-176
             hull = (float(out.max()) <= float(v.max()) + 1e-4
                     and float(out.min()) >= float(v.min()) - 1e-4)
@@ -552,10 +595,16 @@ def flash_kernels(torch, rows: dict) -> None:
             ok = ok and hull
         ms, host_ms = device_ms(torch, lambda: flash_attention(q, k, v, **kw))
         plain_ms, _ = device_ms(torch, lambda: attention_plain(q, k, v, **kw), n=5)
-        library_ms = None
         if window is None:
-            library_ms, _ = device_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
-                                                          enable_gqa=True))
+            library_call = f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"
+            lib = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+        else:
+            library_call = ("scaled_dot_product_attention(attn_mask=band, enable_gqa=True), "
+                            "the boolean mask built outside the timing")
+            mask = attention_mask(torch, S, causal, window)
+            lib = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        library_err = float((lib().float() - ref.float()).abs().max())
+        library_ms, _ = device_ms(torch, lib)
         esize = q.element_size()
         nbytes = esize * (2 * B * Hq * S * D + 2 * B * Hk * S * D)
         flops = 4 * D * B * Hq * attention_pairs(S, causal, window)
@@ -563,9 +612,8 @@ def flash_kernels(torch, rows: dict) -> None:
         b_ms, b_by = bound(nbytes, flops, rate)
         row.update(ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
                    plain_note="plain PyTorch version (materialises the logits), not a yardstick",
-                   library_ms=library_ms,
-                   library_call="scaled_dot_product_attention(enable_gqa=True)"
-                   if library_ms is not None else "none: SDPA takes no window",
+                   library_ms=library_ms, library_call=library_call,
+                   library_max_abs_err=library_err,
                    gflop=flops / 1e9, tflop_per_s=flops / ms / 1e9,
                    bound_ms=b_ms, bound_by=b_by,
                    bound_rate="bf16 tensor cores" if dtype == torch.bfloat16
@@ -573,7 +621,7 @@ def flash_kernels(torch, rows: dict) -> None:
         emit("kernels", **row)
         check(ok, f"flash_attention disagrees with its plain version at {name}: {row}")
         rows[("flash_attention", name)] = row
-        del q, k, v, out, ref
+        del q, k, v, out, ref, lib
     torch.cuda.empty_cache()
 
 
@@ -1432,22 +1480,36 @@ def phase_campaign(torch, launches: dict, work: pathlib.Path, truth_dir: pathlib
     check(wall < CAMPAIGN_PHASE_WALL_S, f"campaign phase took {wall} s")
 
 
-def normwise(a, b) -> dict:
-    """Largest absolute error, and it over the reference's largest entry."""
-    d = float((a.float().cpu() - b.float().cpu()).abs().max())
-    return dict(max_abs_err=d, normwise_err=d / max(float(b.float().abs().max()), 1e-30))
+def traced(torch, fn, top_n: int = 6):
+    """(fn(), its trace): the host wall, the device's busy seconds and share
+    of it, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:top_n]
+    return result, dict(
+        traced_wall_s=wall, device_busy_s=busy if busy > 0 else "not measured",
+        busy_share=busy / wall if busy > 0 else "not measured",
+        kernels=[dict(name=e.key[:70], count=e.count,
+                      device_s=e.self_device_time_total / 1e6) for e in top])
 
 
 def phase_serve(torch, launches: dict) -> None:
     import dataclasses
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs.registry import get
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate, grow_cache, seeded_prompt
     from repro_torch.models.api import build_model
+    from repro_torch.models.crosscheck import normwise, to_device
     from repro_torch.models.params import leaves
     cfg = get(SERVE_ARCH)
     m = build_model(cfg)
@@ -1460,7 +1522,7 @@ def phase_serve(torch, launches: dict) -> None:
     runs = []
     for _ in range(2):                                 # the first run is cold
         flash_attention.launches = 0
-        res = generate(m, params, prompt, SERVE_NEW)
+        res = generate(m, params, {"tokens": prompt}, SERVE_NEW)
         n = flash_attention.launches
         check(res.kernel_launches == {"prefill": cfg.n_layers, "decode": 0} and n == cfg.n_layers,
               f"serve: flash_attention launches {res.kernel_launches}, expected "
@@ -1503,29 +1565,13 @@ def phase_serve(torch, launches: dict) -> None:
          sampled=runs[0].tokens[0][:16].tolist())
 
     # where the time goes: one prefill and 4 decode steps, traced
-    def traced(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
-        busy = sum(e.self_device_time_total for e in rows) / 1e6
-        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-        return result, dict(
-            traced_wall_s=wall, device_busy_s=busy if busy > 0 else "not measured",
-            busy_share=busy / wall if busy > 0 else "not measured",
-            kernels=[dict(name=e.key[:70], count=e.count,
-                          device_s=e.self_device_time_total / 1e6) for e in top])
     out = {}
-    (_, pcache), out["prefill"] = traced(lambda: m.prefill(params, {"tokens": prompt}))
-    cache = grow_cache(m, pcache, SERVE_B, SERVE_PROMPT + SERVE_NEW + 8, "cuda")
+    (_, pcache), out["prefill"] = traced(torch, lambda: m.prefill(params, {"tokens": prompt}))
+    cache = grow_cache(m, pcache, SERVE_B, SERVE_PROMPT + SERVE_NEW + 8)
     del pcache
     tok = prompt[:, -1:]
-    _, out["decode_4_steps"] = traced(lambda: [m.decode_step(params, cache, tok, SERVE_PROMPT + i)
-                                               for i in range(4)])
+    _, out["decode_4_steps"] = traced(torch, lambda: [
+        m.decode_step(params, cache, tok, SERVE_PROMPT + i) for i in range(4)])
     emit("serve_profile", **out)
     del params, cache, runs, res
     torch.cuda.empty_cache()
@@ -1551,7 +1597,7 @@ def phase_serve(torch, launches: dict) -> None:
             mixer["wk"] *= (cfg.n_kv / cfg.d_model) ** 0.5
         ref_logits, _ = m32.prefill(p32, {"tokens": toks})
         _, cache = m32.prefill(p32, {"tokens": toks[:, :256]})
-        cache = grow_cache(m32, cache, 1, 256 + 8, "cuda")
+        cache = grow_cache(m32, cache, 1, 256 + 8)
         logits, _ = m32.decode_step(p32, cache, toks[:, 256:], 256)
         _, _, ok = max_errs([logits], [ref_logits], CONTINUATION_TOL, CONTINUATION_TOL)
         finite = bool(torch.isfinite(logits).all() and torch.isfinite(ref_logits).all())
@@ -1566,7 +1612,7 @@ def phase_serve(torch, launches: dict) -> None:
     # the card against the CPU (plain versions), full width, 2 layers, float32
     m2 = build_model(dataclasses.replace(cfg32, n_layers=2))
     p2 = m2.init(4)
-    p2_cpu = _tree_to(p2, "cpu")
+    p2_cpu = to_device(p2, "cpu")
     toks = seeded_prompt(cfg.vocab, 1, 256, 5, "cuda")
     t0 = time.perf_counter()
     logits, cache = m2.prefill(p2, {"tokens": toks})
@@ -1585,9 +1631,123 @@ def phase_serve(torch, launches: dict) -> None:
     check(ok, f"serve: card against CPU off by {errs}")
 
 
-def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+# The zoo at full width on one card (phase zoo): (arch, layers run or None
+# for the whole model, batch, prompt tokens, flash_attention launches a
+# prefill).  Depth is cut only where the bf16 weights would not fit in 80 GB
+# beside init's largest float32 temporary; widths never.  Whisper adds 1500
+# audio frames and llava 576 patches (the stubs' seeded embeddings).
+ZOO = [
+    ("gemma3-27b", None, 2, 2048, 62),        # local window 1024 < prompt: a ring
+    ("mixtral-8x22b", 2, 1, 4608, 2),         # window 4096 < prompt; MoE cap 1440
+    ("deepseek-v3-671b", 4, 2, 1024, 0),      # 3 dense-first + 1 MoE; MLA, no K4
+    ("jamba-v0.1-52b", 8, 2, 2048, 1),        # one period: 7 Mamba, 1 attention, 4 MoE
+    ("xlstm-125m", None, 2, 512, 0),          # mLSTM/sLSTM, recurrent prefill
+    ("whisper-large-v3", None, 2, 64, 64),    # 32 encoder (bidirectional) + 32 decoder
+    ("llava-next-34b", 8, 2, 512, 8),         # 576 patch embeddings before the prompt
+]
+ZOO_NEW = 16
+# every shape the zoo's prefills give flash_attention: ([B, Hq, Hk, S, D],
+# causal, window, launches a prefill).  Whisper's decoder prompt (64) is
+# shorter than one 128-row tile; llava's 1088 positions (576 patches + 512
+# tokens) end in a ragged tile at a GQA ratio of 7.
+ZOO_K4_CASES = {
+    "whisper encoder bf16 2x20/20x1500x64 bidirectional": ((2, 20, 20, 1500, 64), False, None, 32),
+    "whisper decoder bf16 2x20/20x64x64 causal": ((2, 20, 20, 64, 64), True, None, 32),
+    "gemma3 local bf16 2x32/16x2048x128 window 1024": ((2, 32, 16, 2048, 128), True, 1024, 51),
+    "gemma3 global bf16 2x32/16x2048x128 causal": ((2, 32, 16, 2048, 128), True, None, 11),
+    "mixtral bf16 1x48/8x4608x128 window 4096": ((1, 48, 8, 4608, 128), True, 4096, 2),
+    "jamba bf16 2x32/8x2048x128 causal": ((2, 32, 8, 2048, 128), True, None, 1),
+    "llava bf16 2x56/8x1088x128 causal": ((2, 56, 8, 1088, 128), True, None, 8),
+}
+ZOO_PHASE_WALL_S = 300                 # a guard on the time limit
+ZOO_TRACE_PREFILL_S = 1.0              # longer prefills (xlstm's recurrent one) go untraced
+
+
+def phase_zoo(torch, launches: dict, smi: str) -> None:
+    """The seven zoo configurations at full width in bf16 (seeded weights):
+    one prefill and ZOO_NEW greedy tokens through ``generate``, twice (the
+    first cold); then every registered architecture's reduced config in
+    float32, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS, get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, grow_cache, prompt_positions, seeded_batch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.crosscheck import attention_layers, card_vs_cpu
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for arch, depth, B, P, k4 in ZOO:
+        full = get(arch)
+        cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+        m = build_model(cfg)
+        check(attention_layers(m) == k4,
+              f"zoo {arch}: {attention_layers(m)} attention layers, not {k4}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = m.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = seeded_batch(cfg, B, P, "cuda")
+        runs = []
+        for _ in range(2):
+            flash_attention.launches = 0
+            res = generate(m, params, batch, ZOO_NEW)
+            n = flash_attention.launches
+            check(res.kernel_launches == {"prefill": k4, "decode": 0} and n == k4,
+                  f"zoo {arch}: flash_attention launches {res.kernel_launches}, expected "
+                  f"{k4} in prefill and none in decode")
+            check(res.all_finite, f"zoo {arch}: non-finite logits")
+            check(tuple(res.tokens.shape) == (B, ZOO_NEW)
+                  and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+                  f"zoo {arch}: bad tokens {tuple(res.tokens.shape)}")
+            runs.append(res)
+            if len(runs) == 1:
+                launches["flash_attention"] += n
+                launches["flash_attention_zoo"] += n
+        same = bool(torch.equal(runs[0].tokens, runs[1].tokens))
+        # where the time goes: a warm prefill (where it is short) and 4
+        # decode steps, traced
+        P_pos = prompt_positions(m, batch)
+        if runs[1].prefill_s < ZOO_TRACE_PREFILL_S:
+            (_, pcache), prof_prefill = traced(torch, lambda: m.prefill(params, batch), top_n=3)
+        else:
+            _, pcache = m.prefill(params, batch)
+            prof_prefill = (f"not traced: a {runs[1].prefill_s:.3g} s prefill is a host loop "
+                            "whose trace takes minutes to process")
+        cache = grow_cache(m, pcache, B, P_pos + 4 + 8)
+        del pcache
+        tok = batch["tokens"][:, -1:]
+        _, prof_decode = traced(torch, lambda: [m.decode_step(params, cache, tok, P_pos + i)
+                                                for i in range(4)], top_n=3)
+        del cache
+        layers = cfg.n_layers if m.is_encdec else sum(st.repeat * len(st.blocks)
+                                                      for st in cfg.stages())
+        emit("zoo", arch=arch, layers=layers, published_layers=full.n_layers,
+             cut=f"depth {full.n_layers} -> {cfg.n_layers}" if depth else "none",
+             d_model=cfg.d_model, n_params=m.n_params, dtype=cfg.param_dtype, batch=B,
+             prompt_tokens=P, prompt_positions=prompt_positions(m, batch),
+             prefix=(tuple(batch["prefix_embeds"].shape[1:2]) if "prefix_embeds" in batch
+                     else None), new_tokens=ZOO_NEW, init_s=init_s,
+             prefill_s=[r.prefill_s for r in runs],
+             decode_ms_per_token=[r.decode_s / ZOO_NEW * 1e3 for r in runs],
+             flash_attention_launches=runs[0].kernel_launches,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             tokens_identical_across_runs=same, sampled=runs[0].tokens[0][:8].tolist(),
+             traced_prefill=prof_prefill, traced_decode_4_steps=prof_decode, card=smi)
+        check(same, f"zoo {arch}: two runs gave different tokens")
+        del params, runs, res, batch
+        torch.cuda.empty_cache()
+
+    # every architecture reduced, float32 with TF32 off: card against CPU
+    rows = {}
+    for name in sorted(ARCHS):
+        rows[name] = card_vs_cpu(name)
+        check(rows[name]["ok"], f"zoo reduced {name}: card against CPU off: {rows[name]}")
+        del rows[name]["errors"]
+    wall = time.perf_counter() - t_phase
+    emit("zoo_checks", card_vs_cpu_reduced_f32=rows, phase_wall_s=wall, card=smi)
+    check(wall < ZOO_PHASE_WALL_S, f"zoo phase took {wall} s")
 
 
 def main() -> int:
@@ -1632,7 +1792,8 @@ def main() -> int:
     maxmin_kernels(torch, recorded, rows)
     flash_kernels(torch, rows)
 
-    launches = {"fluid_scan": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0}
+    launches = {"fluid_scan": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0,
+                "flash_attention_zoo": 0}
     fluid_iters = phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
@@ -1643,6 +1804,7 @@ def main() -> int:
         params = phase_learned(torch, launches, work / "truth")
         phase_campaign(torch, launches, work, work / "truth", params)
     phase_serve(torch, launches)
+    phase_zoo(torch, launches, smi)
 
     k1 = rows[("fluid_scan", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
@@ -1673,7 +1835,16 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:28",
              launches=launches["flash_attention"], max_abs_err=k4["max_abs_err"],
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=k4["library_ms"]),
+             bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+             launches_by_path={"serve": launches["flash_attention"]
+                               - launches["flash_attention_zoo"],
+                               "zoo": launches["flash_attention_zoo"]},
+             zoo_cases={name.split(" bf16")[0]: {
+                 "launches_per_prefill": per_prefill,
+                 **{key: rows[("flash_attention", name)][key]
+                    for key in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}}
+                 for name, (*_, per_prefill) in ZOO_K4_CASES.items()}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,7 @@
 """Unified model facade: ``build_model(cfg)`` returns a Model whose
-prefill/decode entry points serve a decoder-only LM.
+prefill/decode entry points serve any registered architecture: the
+decoder-only LM (:mod:`repro_torch.models.lm`) or the encoder-decoder
+(:mod:`repro_torch.models.encdec`).
 
 ``init`` and ``init_cache`` make tensors on the CUDA card unless the caller
 passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`);
@@ -37,12 +39,6 @@ class Model:
         self.is_encdec = self.cfg.enc_dec
         self.specs = (encdec.encdec_specs if self.is_encdec else lm.lm_specs)(self.cfg)
 
-    def _require_lm(self) -> None:
-        if self.is_encdec:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the encoder-decoder is not ported yet: it "
-                "waits for ROADMAP Queue 1, \"The rest of the architecture zoo\"")
-
     # -- params -------------------------------------------------------- #
     def init(self, seed: int | torch.Generator, device=None):
         """Parameters drawn from ``seed`` (an int, or a ``torch.Generator``
@@ -63,19 +59,27 @@ class Model:
 
     # -- steps ---------------------------------------------------------- #
     def prefill(self, params, batch):
-        self._require_lm()
-        return lm.prefill(self.cfg, params, batch)
+        """``batch``: ``tokens`` ``[B, T]``, and ``prefix_embeds``
+        ``[B, P, d]`` for the vision and audio stubs (the encoder-decoder's
+        frames).  Returns (last-token logits, populated cache)."""
+        fn = encdec.prefill if self.is_encdec else lm.prefill
+        return fn(self.cfg, params, batch)
 
     def decode_step(self, params, cache, tokens, pos: int):
         """One token; ``cache`` is updated in place (see
         :func:`repro_torch.models.lm.decode_step`)."""
-        self._require_lm()
-        return lm.decode_step(self.cfg, params, cache, tokens, pos)
+        fn = encdec.decode_step if self.is_encdec else lm.decode_step
+        return fn(self.cfg, params, cache, tokens, pos)
 
     # -- caches ---------------------------------------------------------- #
     def cache_specs(self, B: int, S: int):
-        self._require_lm()
-        return lm.cache_specs(self.cfg, B, S, DTYPES[self.cfg.dtype])
+        """The reference's specs.  The encoder-decoder's cross cache is
+        given ``min(S, 4096)`` frames there, which need not be the real
+        frame count: serving takes the cross cache from prefill."""
+        dtype = DTYPES[self.cfg.dtype]
+        if self.is_encdec:
+            return encdec.cache_specs(self.cfg, B, S, S_enc=min(S, 4096), dtype=dtype)
+        return lm.cache_specs(self.cfg, B, S, dtype)
 
     def init_cache(self, B: int, S: int, device=None):
         dev = resolve_device(device)

@@ -1,16 +1,27 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (causal, optional sliding
-window; full-sequence and single-token-decode forms) and the SwiGLU MLP.
+"""Core layers: RMSNorm, RoPE, GQA attention (causal or bidirectional,
+optional sliding window; full-sequence, cross-attention and
+single-token-decode forms), MLA (DeepSeek latent attention with its
+compressed decode cache), the SwiGLU / GELU MLP and top-k MoE with
+capacity-based dispatch (sort-and-gather, or GShard's one-hot einsums).
 
-Full-sequence attention goes through the hand-written flash-attention
+Full-sequence self-attention goes through the hand-written flash-attention
 kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`) where
 the reference calls its ``_sdpa``.  The two round differently in bf16, by
 design: ``_sdpa`` rounds the logits and the probabilities to bf16, the
-kernel keeps both in float32.  The plain projections are ``torch.einsum``,
-as the reference leaves them to XLA.
+kernel keeps both in float32.  Cross-attention (query and key lengths
+differ, which the kernel does not take), MLA (a q·k head dim of
+``nope_dim + rope_dim`` beside a v head dim of ``v_head_dim``), decode and
+MoE are plain PyTorch, as the reference computes them in plain ``jnp``.
+The projections are ``torch.einsum``, as the reference leaves them to XLA.
 
-MLA and MoE layers have their parameter specs here (the parameter count
-needs them); their forward passes wait for their slice of the port
-(ROADMAP Queue 1, "The rest of the architecture zoo").
+Decode forms write the new token's state into the cache **in place** (the
+reference returns a new cache) and return ``(x_out, cache)``.
+
+Where the port departs from the reference on purpose (ROADMAP Queue 3):
+``moe_einsum`` counts slot positions in integers (the reference's cumsum
+runs in the activation dtype, so in bf16 it miscounts past 256 pairs an
+expert); top-k breaks ties by the lower expert index, as ``lax.top_k``
+does, on every device.
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.params import P
+
+FP8_E4M3_NAN_ABOVE = 464.0   # XLA rounds |x| > 464 to e4m3fn's NaN; torch saturates to 448
 
 
 # --------------------------------------------------------------------- #
@@ -41,6 +54,10 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _softmax_as(logits, dtype):
+    return torch.softmax(logits, dim=-1).to(dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -67,61 +84,109 @@ def project_qkv(x, p, cfg, positions):
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
-def attend(x, q, k, v, p, window: int):
-    """Causal attention of the projected q, k, v through the kernel, the
-    output projection and the residual.  Query i sees keys ``j <= i`` (and
-    ``j > i - window`` for a window > 0): positions are 0..S-1, as
-    :func:`repro_torch.models.lm.assemble_input` makes them.  Head h reads
-    KV head ``h // (H // Hk)``, the reference's ``[B, S, Hk, G, hd]``
-    grouping.  A causal row always has a valid key, so the kernel's 0 for
-    a fully masked row (``_sdpa`` gives the mean of v there) never shows."""
+def attend(x, q, k, v, p, window: int, causal: bool = True):
+    """Self-attention of the projected q, k, v through the kernel, the
+    output projection and the residual.  Causal: query i sees keys
+    ``j <= i`` (and ``j > i - window`` for a window > 0); positions are
+    0..S-1, as :func:`repro_torch.models.lm.assemble_input` makes them.
+    Bidirectional (``causal=False``, the Whisper encoder, no window): every
+    key.  Head h reads KV head ``h // (H // Hk)``, the reference's
+    ``[B, S, Hk, G, hd]`` grouping.  Every row has a valid key, so the
+    kernel's 0 for a fully masked row (``_sdpa`` gives the mean of v there)
+    never shows."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True, window=window or None)
+                        causal=causal, window=window or None)
     return x + torch.einsum("bhsk,hkd->bsd", o, p["wo"])
 
 
-def attention(x, p, cfg, positions, window: int):
-    """Full-sequence causal self-attention; ``window`` 0 means full."""
-    q, k, v = project_qkv(x, p, cfg, positions)
-    return attend(x, q, k, v, p, window)
+def cross_attend(q, k, v):
+    """Unmasked attention of q ``[B, S, H, hd]`` over k, v ``[B, T, H, hd]``
+    (T != S allowed): the reference's ``_sdpa`` with ``kv_x`` given, and its
+    encoder-decoder decode step's cross-attention.  Logits in the input
+    dtype, then float32; probabilities back in the input dtype."""
+    logits = torch.einsum("bshk,bthk->bhst", q, k).float() * q.shape[-1] ** -0.5
+    return torch.einsum("bhst,bthk->bshk", _softmax_as(logits, q.dtype), v)
 
 
-def attention_decode(x, p, cfg, cache, pos: int, window: int):
-    """Single-token decode: x ``[B, 1, d]``; cache ``{'k', 'v'}``
-    ``[B, T, Hk, hd]``.  Writes the new token's k and v into ``cache`` at
-    ``pos`` **in place** (the reference returns a new cache) and returns
-    ``(x_out, cache)``; raises where the reference's
-    ``dynamic_update_slice`` would clamp ``pos`` into the cache."""
-    B = x.shape[0]
-    H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    G = H // Hk
-    T = cache["k"].shape[1]
+def attention(x, p, cfg, positions, window: int, causal: bool = True, kv_x=None):
+    """Full-sequence attention; ``window`` 0 means full.  With ``kv_x`` (the
+    Whisper decoder's encoder states) it is cross-attention: keys and values
+    from ``rms_norm(kv_x)``, no rotation, no mask, plain PyTorch."""
+    if kv_x is None:
+        q, k, v = project_qkv(x, p, cfg, positions)
+        return attend(x, q, k, v, p, window, causal)
+    h = rms_norm(x, p["ln"])
+    src = rms_norm(kv_x, p["ln"])
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    k = torch.einsum("btd,dhk->bthk", src, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", src, p["wv"])
+    return x + torch.einsum("bshk,hkd->bsd", cross_attend(q, k, v), p["wo"])
+
+
+def _check_pos(pos: int, T: int) -> None:
     if not 0 <= pos < T:
         raise IndexError(f"decode position {pos} outside the cache's {T} positions")
+
+
+def _decode_qkv(x, p, cfg, pos: int):
+    B = x.shape[0]
     h = rms_norm(x, p["ln"])
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k_new = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     posv = torch.full((B, 1), pos, device=x.device)
-    q = rope(q, posv, cfg.rope_theta)
-    k_new = rope(k_new, posv, cfg.rope_theta)
+    return rope(q, posv, cfg.rope_theta), rope(k_new, posv, cfg.rope_theta), v_new
+
+
+def _decode_attend(x, q, k, v, p, cfg, valid):
+    """One query per row over a ``[B, T, Hk, hd]`` cache, keys where
+    ``valid`` ``[T]``; the output projection and the residual."""
+    B = x.shape[0]
+    H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    qg = q.reshape(B, 1, Hk, H // Hk, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
+    logits = torch.where(valid, logits, -1e30)
+    o = torch.einsum("bkgst,btkd->bskgd", _softmax_as(logits, x.dtype), v).reshape(B, 1, H, hd)
+    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def attention_decode(x, p, cfg, cache, pos: int, window: int):
+    """Single-token decode: x ``[B, 1, d]``; cache ``{'k', 'v'}``
+    ``[B, T, Hk, hd]`` with token t at slot t.  Raises where the
+    reference's ``dynamic_update_slice`` would clamp ``pos`` into the
+    cache."""
     k, v = cache["k"], cache["v"]
+    T = k.shape[1]
+    _check_pos(pos, T)
+    q, k_new, v_new = _decode_qkv(x, p, cfg, pos)
     k[:, pos] = k_new[:, 0].to(k.dtype)
     v[:, pos] = v_new[:, 0].to(v.dtype)
-    qg = q.reshape(B, 1, Hk, G, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
     kp = torch.arange(T, device=x.device)
-    mask = kp <= pos
+    valid = kp <= pos
     if window:
-        mask &= kp > pos - window
-    logits = torch.where(mask, logits, -1e30)
-    pr = torch.softmax(logits, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgst,btkd->bskgd", pr, v).reshape(B, 1, H, hd)
-    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+        valid &= kp > pos - window
+    return _decode_attend(x, q, k, v, p, cfg, valid), cache
+
+
+def ring_decode(x, p, cfg, cache, pos: int, window: int):
+    """Sliding-window decode over a ring-buffer cache of ``tbuf`` slots:
+    slot j holds the most recent token t with ``t % tbuf == j``; validity
+    enforces the window (the reference's ``lm._decode_ring``)."""
+    k, v = cache["k"], cache["v"]
+    tbuf = k.shape[1]
+    if pos < 0:
+        raise IndexError(f"decode position {pos} is negative")
+    q, k_new, v_new = _decode_qkv(x, p, cfg, pos)
+    k[:, pos % tbuf] = k_new[:, 0].to(k.dtype)
+    v[:, pos % tbuf] = v_new[:, 0].to(v.dtype)
+    slots = torch.arange(tbuf, device=x.device)
+    slot_pos = pos - torch.remainder(pos - slots, tbuf)    # the token each slot holds
+    valid = (slot_pos >= 0) & (slot_pos > pos - window) & (slot_pos <= pos)
+    return _decode_attend(x, q, k, v, p, cfg, valid), cache
 
 
 # --------------------------------------------------------------------- #
-# MLA (DeepSeek-V3): specs only
+# MLA (DeepSeek-V3) — latent compressed attention, plain PyTorch
 # --------------------------------------------------------------------- #
 def mla_specs(cfg, R: int) -> dict:
     d, H = cfg.d_model, cfg.n_heads
@@ -139,8 +204,57 @@ def mla_specs(cfg, R: int) -> dict:
     }
 
 
+def mla_qkv(x, p, cfg, positions):
+    """(q_nope ``[B,S,H,nope]``, q_rope ``[B,S,H,rope]``, c_kv
+    ``[B,S,kv_lora]``, k_rope ``[B,S,rope]``): the last two are what the
+    compressed cache holds (the rotary key is shared by all heads)."""
+    h = rms_norm(x, p["ln"])
+    q = rms_norm(torch.einsum("bsd,dq->bsq", h, p["wq_a"]), p["q_ln"])
+    q = torch.einsum("bsq,qhk->bshk", q, p["wq_b"])
+    q_nope, q_rope = q[..., :cfg.nope_dim], rope(q[..., cfg.nope_dim:], positions, cfg.rope_theta)
+    kv = torch.einsum("bsd,dc->bsc", h, p["wkv_a"])
+    c_kv = rms_norm(kv[..., :cfg.kv_lora], p["kv_ln"])
+    k_rope = rope(kv[..., None, cfg.kv_lora:], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid):
+    """Attention of the queries over a compressed cache, keys where
+    ``valid`` (``[S, T]`` or ``[T]``)."""
+    kv = torch.einsum("btc,chk->bthk", c_kv, p["wkv_b"])
+    k_nope, v = kv[..., :cfg.nope_dim], kv[..., cfg.nope_dim:]
+    logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope))
+    logits = logits.float() * (cfg.nope_dim + cfg.rope_dim) ** -0.5
+    logits = torch.where(valid, logits, -1e30)
+    o = torch.einsum("bhst,bthk->bshk", _softmax_as(logits, x.dtype), v)
+    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def mla_attention(x, p, cfg, positions, qkv=None):
+    """Causal MLA over the sequence; ``qkv`` is :func:`mla_qkv`'s result
+    when the caller already has it (prefill keeps c_kv and k_rope)."""
+    q_nope, q_rope, c_kv, k_rope = qkv if qkv is not None else mla_qkv(x, p, cfg, positions)
+    pos = positions[0]
+    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, pos[None, :] <= pos[:, None])
+
+
+def mla_decode(x, p, cfg, cache, pos: int):
+    """Decode with the *compressed* cache {c_kv: ``[B,T,kv_lora]``,
+    k_rope: ``[B,T,rope_dim]``}, written at ``pos`` in place."""
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    T = c_kv.shape[1]
+    _check_pos(pos, T)
+    posv = torch.full((x.shape[0], 1), pos, device=x.device)
+    q_nope, q_rope, c_new, kr_new = mla_qkv(x, p, cfg, posv)
+    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+    valid = torch.arange(T, device=x.device) <= pos
+    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid), cache
+
+
 # --------------------------------------------------------------------- #
-# FFN: SwiGLU / GELU MLP; MoE specs only
+# FFN: SwiGLU / GELU MLP and MoE
 # --------------------------------------------------------------------- #
 def mlp_specs(cfg, R: int, d_ff: int | None = None) -> dict:
     d = cfg.d_model
@@ -155,14 +269,18 @@ def mlp_specs(cfg, R: int, d_ff: int | None = None) -> dict:
     return out
 
 
-def mlp(x, p):
+def _mlp_delta(x, p):
     h = rms_norm(x, p["ln"])
     up = torch.einsum("bsd,df->bsf", h, p["wi"])
     if "wg" in p:
         act = F.silu(torch.einsum("bsd,df->bsf", h, p["wg"])) * up
     else:
         act = F.gelu(up, approximate="tanh")       # jax.nn.gelu's default
-    return x + torch.einsum("bsf,fd->bsd", act, p["wo"])
+    return torch.einsum("bsf,fd->bsd", act, p["wo"])
+
+
+def mlp(x, p):
+    return x + _mlp_delta(x, p)
 
 
 def moe_specs(cfg, R: int) -> dict:
@@ -177,3 +295,114 @@ def moe_specs(cfg, R: int) -> dict:
     if cfg.moe_shared:
         out["shared"] = mlp_specs(cfg, R, d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.moe_shared)
     return out
+
+
+def moe_capacity(cfg, T: int) -> int:
+    """Slots per expert for T tokens: 1 for a decode step of a few tokens,
+    so a token whose expert is taken is dropped there, as in the reference."""
+    return max(1, int(cfg.capacity_factor * T * cfg.moe_top_k / cfg.moe_experts))
+
+
+def moe_route(h, p, cfg):
+    """Router softmax in float32 and its top k: (gates ``[T, k]``,
+    renormalised, in h's dtype; expert ids ``[T, k]``).  A stable
+    descending sort takes the lower index first among equal gates, as
+    ``lax.top_k`` does (``torch.topk`` promises no order there)."""
+    gates = torch.softmax(torch.einsum("td,de->te", h, p["router"]).float(), dim=-1)
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :cfg.moe_top_k], topi[:, :cfg.moe_top_k]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    return topv.to(h.dtype), topi
+
+
+def fp8_wire(x, dtype_name: str):
+    """``x`` through the quantised dispatch wire and back to its dtype, as
+    XLA converts: non-finite where XLA gives NaN (|x| > 464 and non-finite
+    inputs; torch would saturate those to ±448), equal elsewhere."""
+    q = x.to(getattr(torch, dtype_name)).to(x.dtype)
+    return torch.where(x.abs() > FP8_E4M3_NAN_ABOVE, torch.nan, q)   # NaN > 464 is False: kept
+
+
+def _experts(xe, p):
+    """SwiGLU of every expert over its ``[E, cap, d]`` slots."""
+    he = (F.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"]))
+          * torch.einsum("ecd,edf->ecf", xe, p["wi"]))
+    return torch.einsum("ecf,efd->ecd", he, p["wo"])
+
+
+def moe_slots(topi, E: int, cap: int):
+    """Sort-based dispatch plan for the ``T * k`` (token, expert) pairs in
+    top-k order: (order, the stable sort of the pairs by expert; slot of
+    each sorted pair in ``[E * cap]``, ``E * cap`` (the dummy row) where
+    the expert is full; keep, the pairs that got a slot)."""
+    e_pair = topi.reshape(-1)
+    order = torch.argsort(e_pair, stable=True)
+    e_s = e_pair[order]
+    first = torch.searchsorted(e_s, e_s, side="left")
+    pos = torch.arange(e_s.numel(), device=e_s.device) - first    # slot within the expert
+    keep = pos < cap
+    return order, torch.where(keep, e_s * cap + pos, E * cap), keep
+
+
+def moe_gather(x, p, cfg):
+    """Top-k MoE with sort-based dispatch: the pairs are gathered into
+    per-expert buffers of ``cap`` slots and their outputs gathered back.
+    Each token's k contributions are summed in ascending expert order (the
+    order of the reference's ``.at[tok_s].add`` updates), one add at a time
+    in x's dtype: no atomics, so every run gives the same bits."""
+    B, S, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    cap = moe_capacity(cfg, T)
+    h = rms_norm(x, p["ln"]).reshape(T, d)
+    topv, topi = moe_route(h, p, cfg)
+    order, slot, keep = moe_slots(topi, E, cap)
+    tok_s = order // k
+    send = h[tok_s]
+    if cfg.moe_a2a_dtype:
+        send = fp8_wire(send, cfg.moe_a2a_dtype)
+    xe = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe[slot] = send                      # dropped pairs all land on the dummy row
+    ye = _experts(xe[:E * cap].reshape(E, cap, d), p).reshape(E * cap, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    contrib = ye[slot] * (topv.reshape(-1)[order] * keep)[:, None]
+    # sorted position of each token's pairs, ascending = ascending expert id
+    where = torch.empty_like(order)
+    where[order] = torch.arange(order.numel(), device=x.device)
+    parts = contrib[where.view(T, k).sort(dim=-1).values]          # [T, k, d]
+    y = parts[:, 0]
+    for i in range(1, k):
+        y = y + parts[:, i]
+    y = y.reshape(B, S, d)
+    if cfg.moe_shared:
+        y = y + _mlp_delta(x, p["shared"])
+    return x + y
+
+
+def moe_einsum(x, p, cfg):
+    """GShard-style dense one-hot dispatch.  Slot positions are counted in
+    integers, so a full expert drops exactly the pairs ``moe_gather``
+    drops in any dtype."""
+    B, S, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    cap = moe_capacity(cfg, T)
+    h = rms_norm(x, p["ln"]).reshape(T, d)
+    topv, topi = moe_route(h, p, cfg)
+    onehot_i = F.one_hot(topi, E)                                    # [T, k, E]
+    pos = ((onehot_i.reshape(T * k, E).cumsum(0) - 1).reshape(T, k, E) * onehot_i).sum(-1)
+    slot = (pos[..., None] == torch.arange(cap, device=x.device)).to(x.dtype)  # [T, k, cap]
+    onehot = onehot_i.to(x.dtype)
+    disp = torch.einsum("tke,tkc->tec", onehot, slot)
+    ye = _experts(torch.einsum("td,tec->ecd", h, disp), p)
+    comb = torch.einsum("tke,tkc,tk->tec", onehot, slot, topv)
+    y = torch.einsum("ecd,tec->td", ye, comb).reshape(B, S, d)
+    if cfg.moe_shared:
+        y = y + _mlp_delta(x, p["shared"])
+    return x + y
+
+
+def moe(x, p, cfg):
+    if cfg.moe_dispatch == "gather":
+        return moe_gather(x, p, cfg)
+    return moe_einsum(x, p, cfg)

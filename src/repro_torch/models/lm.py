@@ -1,16 +1,20 @@
-"""Generic decoder-only LM: the serving path (prefill and decode) of the
-dense-attention families.  The layer pattern comes from ``cfg.stages()``;
-parameters are stacked over each stage's repeat count, as in the reference,
-and a Python loop over the ``[R, ...]`` slices takes the place of its
-``lax.scan``.
+"""Generic decoder-only LM covering the dense / moe / ssm / hybrid / vlm
+families: the serving path (prefill and decode).  The layer pattern comes
+from ``cfg.stages()``; parameters are stacked over each stage's repeat
+count, as in the reference, and a Python loop over the ``[R, ...]`` slices
+takes the place of its ``lax.scan``.
 
 Entry points:
+  forward_hidden(cfg, params, x, positions)     — the stack's final hidden states
   prefill(cfg, params, batch)                   — (last-token logits, cache)
   decode_step(cfg, params, cache, tokens, pos)  — one token, cache updated in place
 
-Mixers other than (non-MLA) attention, MoE feed-forwards and the
-sliding-window ring cache raise ``NotImplementedError``: they wait for
-ROADMAP Queue 1, "The rest of the architecture zoo"; so does ``loss_fn``.
+Sliding-window layers whose cache is no longer than the window keep a ring
+buffer: prefill lays a prompt longer than the window out in ring order
+(slot j holds the last token t with ``t % w == j``) and decode wraps.
+mLSTM and sLSTM prefill run their decode step over the prompt, one Python
+iteration a token, to build the exact recurrent state, as the reference's
+``lax.scan`` does.  The training loss is not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -22,12 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import P
 
-_WAITS = "waits for ROADMAP Queue 1, \"The rest of the architecture zoo\""
 _ATTN_KINDS = (ATTN, ATTN_GLOBAL, ATTN_LOCAL)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it {_WAITS}")
 
 
 # --------------------------------------------------------------------- #
@@ -62,9 +61,17 @@ def lm_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
-def _layer(tree, r: int):
-    """Layer ``r`` of a stage's stacked ``[R, ...]`` tree (views, no copies)."""
-    return {k: _layer(v, r) for k, v in tree.items()} if isinstance(tree, dict) else tree[r]
+def layer(tree, r: int):
+    """Layer ``r`` of a stacked ``[R, ...]`` tree (views, no copies)."""
+    return {k: layer(v, r) for k, v in tree.items()} if isinstance(tree, dict) else tree[r]
+
+
+def stack_layers(per_layer: list):
+    """Per-layer trees stacked along a new leading layer axis."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in per_layer]) for k in first}
+    return torch.stack(per_layer)
 
 
 def _window(kind: str, cfg: ArchConfig) -> int:
@@ -74,21 +81,28 @@ def _window(kind: str, cfg: ArchConfig) -> int:
     return 0
 
 
-def _check_attention(kind: str, cfg: ArchConfig) -> None:
-    if kind not in _ATTN_KINDS:
-        raise _not_ported(f"the {kind!r} mixer")
-    if cfg.mla:
-        raise _not_ported("MLA attention")
-
-
 # --------------------------------------------------------------------- #
 # forward
 # --------------------------------------------------------------------- #
+def _apply_mixer(kind: str, x, p, cfg: ArchConfig, positions):
+    if cfg.mla and kind == ATTN:
+        return L.mla_attention(x, p, cfg, positions)
+    if kind in _ATTN_KINDS:
+        return L.attention(x, p, cfg, positions, window=_window(kind, cfg))
+    if kind == MAMBA:
+        return S.mamba(x, p, cfg)
+    if kind == MLSTM:
+        return S.mlstm(x, p, cfg)
+    if kind == SLSTM:
+        return S.slstm(x, p, cfg)
+    raise ValueError(kind)
+
+
 def _apply_ffn(kind: str, x, p, cfg: ArchConfig):
     if kind == MLP:
         return L.mlp(x, p)
     if kind == MOE:
-        raise _not_ported("the MoE feed-forward")
+        return L.moe(x, p, cfg)
     if kind != NONE:
         raise ValueError(kind)
     return x
@@ -98,11 +112,10 @@ def forward_hidden(cfg: ArchConfig, params, x, positions):
     for si, stage in enumerate(cfg.stages()):
         sp = params[f"stage{si}"]
         for r in range(stage.repeat):
-            layer_p = _layer(sp, r)
+            layer_p = layer(sp, r)
             for bi, blk in enumerate(stage.blocks):
                 bp = layer_p[f"b{bi}"]
-                _check_attention(blk.mixer, cfg)
-                x = L.attention(x, bp["mixer"], cfg, positions, window=_window(blk.mixer, cfg))
+                x = _apply_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
                 x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
     return L.rms_norm(x, params["final_ln"])
 
@@ -168,11 +181,20 @@ def cache_specs(cfg: ArchConfig, B: int, S: int, dtype):
 
 
 def _decode_mixer(kind: str, x, p, cfg, cache, pos: int):
-    _check_attention(kind, cfg)
-    w = _window(kind, cfg)
-    if w and cache["k"].shape[1] <= w:
-        raise _not_ported("the sliding-window ring cache")
-    return L.attention_decode(x, p, cfg, cache, pos, window=w)
+    if cfg.mla and kind == ATTN:
+        return L.mla_decode(x, p, cfg, cache, pos)
+    if kind in _ATTN_KINDS:
+        w = _window(kind, cfg)
+        if w and cache["k"].shape[1] <= w:   # ring buffer over the window
+            return L.ring_decode(x, p, cfg, cache, pos, w)
+        return L.attention_decode(x, p, cfg, cache, pos, window=w)
+    if kind == MAMBA:
+        return S.mamba_decode(x, p, cfg, cache, pos)
+    if kind == MLSTM:
+        return S.mlstm_decode(x, p, cfg, cache, pos)
+    if kind == SLSTM:
+        return S.slstm_decode(x, p, cfg, cache, pos)
+    raise ValueError(kind)
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
@@ -184,7 +206,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     for si, stage in enumerate(cfg.stages()):
         sp, cs = params[f"stage{si}"], cache[f"stage{si}"]
         for r in range(stage.repeat):
-            layer_p, layer_c = _layer(sp, r), _layer(cs, r)
+            layer_p, layer_c = layer(sp, r), layer(cs, r)
             for bi, blk in enumerate(stage.blocks):
                 x, _ = _decode_mixer(blk.mixer, x, layer_p[f"b{bi}"]["mixer"], cfg,
                                      layer_c[f"b{bi}"], pos)
@@ -194,16 +216,44 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     return logits, cache
 
 
+def ring_order(T: int, w: int, device) -> torch.Tensor:
+    """Token index held by each of the w ring slots after a T-token prompt
+    (T > w): slot j holds the last token t with ``t % w == j``."""
+    return T - w + torch.remainder(torch.arange(w, device=device) - T, w)
+
+
+def _recurrent_prefill(step, state, x, p, cfg):
+    """The decode step over every token of x, from ``state`` (updated in
+    place): the exact recurrent state, and each step's output."""
+    ys = [step(x[:, t:t + 1], p, cfg, state, t)[0][:, 0] for t in range(x.shape[1])]
+    return torch.stack(ys, 1), state
+
+
 def _prefill_mixer(kind: str, x, p, cfg, positions):
-    """The mixer over the full sequence and its decode cache.  k and v are
-    computed once, for the attention and the cache (the reference computes
-    them twice, to the same numbers)."""
-    _check_attention(kind, cfg)
-    w = _window(kind, cfg)
-    if w and w < x.shape[1]:
-        raise _not_ported("the sliding-window ring cache")
-    q, k, v = L.project_qkv(x, p, cfg, positions)
-    return L.attend(x, q, k, v, p, w), {"k": k, "v": v}
+    """The mixer over the full sequence and its decode cache.  Attention's k
+    and v are computed once, for the attention and the cache (the reference
+    computes them twice, to the same numbers)."""
+    if cfg.mla and kind == ATTN:
+        qkv = L.mla_qkv(x, p, cfg, positions)
+        return L.mla_attention(x, p, cfg, positions, qkv), {"c_kv": qkv[2], "k_rope": qkv[3]}
+    if kind in _ATTN_KINDS:
+        w = _window(kind, cfg)
+        q, k, v = L.project_qkv(x, p, cfg, positions)
+        out = L.attend(x, q, k, v, p, w)
+        T = x.shape[1]
+        if w and w < T:
+            last = ring_order(T, w, x.device)
+            k, v = k[:, last], v[:, last]
+        return out, {"k": k, "v": v}
+    if kind == MAMBA:
+        return S.mamba_prefill(x, p, cfg)
+    if kind == MLSTM:
+        return _recurrent_prefill(S.mlstm_decode, S.mlstm_state(x.shape[0], cfg, x.device),
+                                  x, p, cfg)
+    if kind == SLSTM:
+        return _recurrent_prefill(S.slstm_decode, S.slstm_state(x.shape[0], cfg, x.device),
+                                  x, p, cfg)
+    raise ValueError(kind)
 
 
 def prefill(cfg: ArchConfig, params, batch):
@@ -214,16 +264,14 @@ def prefill(cfg: ArchConfig, params, batch):
         sp = params[f"stage{si}"]
         per_layer = []
         for r in range(stage.repeat):
-            layer_p = _layer(sp, r)
+            layer_p = layer(sp, r)
             caches = {}
             for bi, blk in enumerate(stage.blocks):
                 bp = layer_p[f"b{bi}"]
                 x, caches[f"b{bi}"] = _prefill_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
                 x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
             per_layer.append(caches)
-        cache[f"stage{si}"] = {
-            b: {n: torch.stack([c[b][n] for c in per_layer]) for n in per_layer[0][b]}
-            for b in per_layer[0]}
+        cache[f"stage{si}"] = stack_layers(per_layer)
     h = L.rms_norm(x, params["final_ln"])
     logits = torch.einsum("bd,dv->bv", h[:, -1], unembed_matrix(cfg, params))
     return logits, cache

@@ -109,7 +109,7 @@ def test_n_params_equals_the_reference(name):
     assert build_model(ARCHS[name]).n_params == jax_build_model(JAX_ARCHS[name]).n_params
 
 
-@pytest.mark.parametrize("name", [n for n in ALL if not ARCHS[n].enc_dec])
+@pytest.mark.parametrize("name", ALL)
 def test_cache_specs_equal_the_reference(name):
     got = build_model(ARCHS[name]).cache_specs(4, 2088)
     ref = jax_build_model(JAX_ARCHS[name]).cache_specs(4, 2088)
@@ -271,9 +271,14 @@ def test_forward_hidden_matches_the_reference(window):
     got = lm.forward_hidden(cfg, _torch_tree(ref), torch.from_numpy(x), torch.from_numpy(pos))
     want = JLM.forward_hidden(jcfg, ref, jnp.asarray(x), jnp.asarray(pos))
     _close_normwise(got, want, MODEL_NORMWISE)
-    if window:                                  # a window shorter than the prompt: a ring cache
-        with pytest.raises(NotImplementedError, match="ring cache"):
-            build_model(cfg).prefill(_torch_tree(ref), {"tokens": torch.zeros(1, 24).long()})
+    if window:          # a window shorter than the prompt: prefill lays the cache out as a ring
+        tok = _tokens(cfg, 1, 24)
+        logits, cache = build_model(cfg).prefill(_torch_tree(ref),
+                                                 {"tokens": torch.from_numpy(tok)})
+        jlogits, jcache = jax_build_model(jcfg).prefill(ref, {"tokens": jnp.asarray(tok)})
+        _close_normwise(logits, jlogits, MODEL_NORMWISE)
+        assert cache["stage0"]["b0"]["k"].shape[2] == window
+        _close_normwise(cache["stage0"]["b0"]["k"], jcache["stage0"]["b0"]["k"], MODEL_NORMWISE)
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -316,7 +321,7 @@ def test_decode_matches_prefill_continuation():
     toks = torch.from_numpy(_tokens(m.cfg, B, S + 1))
     ref_logits, _ = m.prefill(params, {"tokens": toks})
     _, cache = m.prefill(params, {"tokens": toks[:, :S]})
-    cache = serve.grow_cache(m, cache, B, S + 8, "cpu")
+    cache = serve.grow_cache(m, cache, B, S + 8)
     logits, _ = m.decode_step(params, cache, toks[:, S:S + 1], S)
     _close(logits, ref_logits, rtol=2e-2, atol=2e-2)
 
@@ -359,28 +364,9 @@ def test_deep_continuation_is_chaotic_on_the_reference_init():
     mixer["wk"] *= (m.cfg.n_kv / m.cfg.d_model) ** 0.5
     tame_err = _continuation_err(lambda b: m.prefill(params, b),
                                  lambda c, t, pos: m.decode_step(params, c, t, pos),
-                                 lambda c: serve.grow_cache(m, c, 1, S + 8, "cpu"),
+                                 lambda c: serve.grow_cache(m, c, 1, S + 8),
                                  torch.from_numpy(toks), S)
     assert tame_err < 1e-5
-
-
-@pytest.mark.parametrize("name,step", [
-    ("mixtral-8x22b", "prefill"),          # MoE feed-forward
-    ("deepseek-v3-671b", "prefill"),       # MLA
-    ("xlstm-125m", "prefill"),             # mLSTM / sLSTM
-    ("jamba-v0.1-52b", "prefill"),         # Mamba
-    ("whisper-large-v3", "prefill"),       # encoder-decoder
-    ("gemma3-27b", "decode"),              # the sliding-window ring cache
-])
-def test_unported_parts_raise(name, step):
-    m = build_model(ARCHS[name].reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if step == "prefill":
-            m.prefill(m.init(0, device="cpu"), {"tokens": torch.zeros(1, 8, dtype=torch.long)})
-        else:
-            p = m.init(0, device="cpu")
-            m.decode_step(p, m.init_cache(1, 16, device="cpu"),
-                          torch.zeros(1, 1, dtype=torch.long), 0)
 
 
 # --------------------------------------------------------------------- #
@@ -404,7 +390,7 @@ def test_serve_tokens_match_the_reference_serve_loop():
         logits, cache = decode(ref, cache, tok, P + i)
         tok = jnp.argmax(logits, -1)[:, None]
         want.append(tok)
-    res = serve.generate(port, _torch_tree(ref), torch.from_numpy(prompt).long(), N)
+    res = serve.generate(port, _torch_tree(ref), {"tokens": torch.from_numpy(prompt).long()}, N)
     np.testing.assert_array_equal(res.tokens.numpy(), np.asarray(jnp.concatenate(want, 1)))
     assert res.all_finite
     assert res.kernel_launches == {"prefill": 0, "decode": 0}    # plain versions on the CPU
