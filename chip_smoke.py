@@ -123,7 +123,31 @@ Phases, one JSON line each:
             s, decode ms/token and peak memory beside the card's name and
             power limit; then all ten registered architectures' reduced
             configs in float32, card against CPU (norm-wise 1e-4; MoE at
-            the reference's continuation bar).
+            the reference's continuation bar);
+13. train   the training path on the card: K4's backward
+            (``flash_attention_backward``) against its plain version at
+            granite-3-2b's training shape in float32 and bf16, gemma3's
+            local window, whisper's bidirectional encoder and a strided
+            view (float32 norm-wise 1e-4; bf16 each gradient within 2e-2 of
+            its own largest |ref|; two launches bit-identical), with its
+            time, bound and the time of SDPA's backward under autograd (the
+            library yardstick, which the port never calls); granite-3-2b at
+            full width and depth in bf16: one batch's gradients on the
+            reference's initialiser (held to a finite loss only: their
+            global norm overflows float32), then 6 steps through
+            ``train_loop.train`` on the same weights with wq and wk at a
+            fan-in of d_model (batch 4 x 2048 from ``TokenPipeline``,
+            remat on, float32 AdamW state): finite losses and gradient
+            norms, exactly 80 K4 forward launches a step (40, and 40
+            recomputed) and 40 backward launches, no K1-K3 launch; step ms,
+            tokens/s, MFU against 989 TFLOP/s, peak memory, and one step
+            under ``torch.profiler``; every reduced architecture's loss and
+            gradients card against CPU (norm-wise 1e-4) and granite at full
+            width with 2 layers in float32; reduced granite failing at step
+            8 and resuming from step 5, its losses those of the CPU (rtol
+            1e-4) and its checkpoint restoring on the CPU bit-equal; and
+            ``python -m repro_torch.launch.train`` on the card with its loss
+            falling.
 
 Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -175,6 +199,11 @@ CAMPAIGN_PHASE_WALL_S = 180           # likewise for the campaign phase
 LEARNED_HELDOUT_ERR = 0.10            # tests/test_learned.py:125-128
 PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)   # log slowdowns, card vs CPU
 LEARNED_BACKENDS = ("packet", "wormhole", "hybrid", "fluid", "analytic", "learned")
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "granite-3-2b", 4, 2048, 6
+K4_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # each gradient, over its own largest |ref|
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # the forward's float32 log-sum-exp, both dtypes
+RESUME_RTOL = 1e-4                    # resumed losses, card vs CPU
+TRAIN_PHASE_WALL_S = 300              # a guard on the time limit
 
 
 def emit(phase: str, **fields) -> None:
@@ -1750,6 +1779,304 @@ def phase_zoo(torch, launches: dict, smi: str) -> None:
     check(wall < ZOO_PHASE_WALL_S, f"zoo phase took {wall} s")
 
 
+# K4's backward at the training path's shapes: ([B, Hq, Hk, S, D], causal,
+# window, dtype, [B, S, H, D] views transposed as the layers pass them)
+K4_BWD_CASES = {
+    "granite train f32 4x32/8x2048x64 causal": ((4, 32, 8, 2048, 64), True, None, "float32",
+                                                True),
+    "granite train bf16 4x32/8x2048x64 causal": ((4, 32, 8, 2048, 64), True, None, "bfloat16",
+                                                 True),
+    "gemma3 local bf16 2x32/16x2048x128 window 1024": ((2, 32, 16, 2048, 128), True, 1024,
+                                                       "bfloat16", False),
+    "whisper encoder bf16 2x20/20x1500x64 bidirectional": ((2, 20, 20, 1500, 64), False, None,
+                                                           "bfloat16", False),
+    "strided bf16 2x16/4x1000x32 window 300": ((2, 16, 4, 1000, 32), True, 300, "bfloat16",
+                                               True),
+}
+
+
+def normwise_errs(got, ref) -> dict:
+    """max |got - ref| and that over max |ref| for dq, dk and dv."""
+    return {n: dict(max_abs_err=float((a.float() - r.float()).abs().max()),
+                    normwise_err=float((a.float() - r.float()).abs().max()
+                                       / r.float().abs().max()))
+            for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+
+
+def flash_backward_kernels(torch, rows: dict) -> None:
+    """K4's backward against its plain version on the card, from the
+    forward kernel's output and log-sum-exp, which are first held against
+    ``attention_plain`` and ``attention_lse_plain``; then ``flash_attention``
+    under autograd (forward kernel and backward kernels together) against
+    autograd of ``attention_plain``.  SDPA's backward under autograd is timed
+    beside it (``is_causal``, or a boolean band mask)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import (attention_backward_plain,
+                                                     attention_lse_plain, attention_plain,
+                                                     flash_attention, flash_attention_backward)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, ((B, Hq, Hk, S, D), causal, window, dtype, strided) in K4_BWD_CASES.items():
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device="cuda").to(dt)
+                       .transpose(1, 2) for h in (Hq, Hk, Hk, Hq))
+        if not strided:
+            q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+        kw = dict(causal=causal, window=window)
+        # the forward in the mode the training path launches it: with the log-sum-exp
+        o, lse = _forward(q, k, v, causal, window, D ** -0.5, True)
+        o_ref = attention_plain(q, k, v, **kw).float()
+        lse_abs, _, lse_ok = max_errs([lse], [attention_lse_plain(q, k, **kw)], **LSE_TOL)
+        o_abs, _, o_ok = max_errs([o.float()], [o_ref], **K4_TOL[dtype])
+        if dtype == "bfloat16":
+            o_ok = o_ok and float(((o.float() - o_ref).abs().amax(-1)
+                                   / o_ref.abs().amax(-1).clamp_min(1e-30)).max()) <= K4_ROW_RTOL
+        del o_ref
+        got = flash_attention_backward(q, k, v, o, do, lse, **kw)
+        again = flash_attention_backward(q, k, v, o, do, lse, **kw)
+        ref = attention_backward_plain(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        identical = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        errs = normwise_errs(got, ref)
+        del got, again, ref
+        # forward and backward together: autograd through the kernels against
+        # autograd of the plain forward, from the same leaves
+        n_fwd, n_bwd = flash_attention.launches, flash_attention_backward.launches
+        aq, ak, av = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        got = torch.autograd.grad(flash_attention(aq, ak, av, **kw), (aq, ak, av), do)
+        through_kernels = (flash_attention.launches - n_fwd,
+                           flash_attention_backward.launches - n_bwd) == (1, 1)
+        aq, ak, av = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        ref = torch.autograd.grad(attention_plain(aq, ak, av, **kw), (aq, ak, av), do)
+        autograd_errs = normwise_errs(got, ref)
+        del got, ref, aq, ak, av
+        ok = (identical and lse_ok and o_ok and through_kernels
+              and all(e["normwise_err"] <= K4_BWD_TOL[dtype]
+                      for e in (*errs.values(), *autograd_errs.values())))
+        ms, host_ms = device_ms(torch, lambda: flash_attention_backward(q, k, v, o, do, lse, **kw),
+                                n=20)
+        plain_ms, _ = device_ms(torch, lambda: attention_backward_plain(q, k, v, o, do, lse, **kw),
+                                n=3)
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        if window is None:
+            library_call = (f"autograd backward of scaled_dot_product_attention("
+                            f"is_causal={causal}, enable_gqa=True), timed alone")
+            lout = sdpa(lq, lk, lv, is_causal=causal, enable_gqa=True)
+        else:
+            library_call = ("autograd backward of scaled_dot_product_attention(attn_mask=band, "
+                            "enable_gqa=True), timed alone")
+            lout = sdpa(lq, lk, lv, attn_mask=attention_mask(torch, S, causal, window),
+                        enable_gqa=True)
+        lib = lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)  # noqa: E731
+        library_ms, _ = device_ms(torch, lib, n=20)
+        esize = q.element_size()
+        nbytes = esize * 4 * (B * Hq * S * D + B * Hk * S * D) + 4 * B * Hq * S
+        flops = 10 * D * B * Hq * attention_pairs(S, causal, window)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S if dtype == "bfloat16"
+                           else FP32_FLOP_PER_S)
+        row = dict(kernel="flash_attention_backward", case=name, shape=[B, Hq, Hk, S, D],
+                   causal=causal, window=window, dtype=dtype, strided_views=strided,
+                   errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   tolerance_normwise=K4_BWD_TOL[dtype], two_launches_identical=identical,
+                   forward_lse_max_abs_err=lse_abs, forward_lse_ok=lse_ok,
+                   lse_tolerance=LSE_TOL, forward_out_max_abs_err=o_abs, forward_out_ok=o_ok,
+                   autograd_vs_plain_autograd=autograd_errs,
+                   autograd_through_kernels=through_kernels,
+                   ok=ok, ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_call=library_call, gflop=flops / 1e9,
+                   tflop_per_s=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+                   bound_rate="bf16 tensor cores" if dtype == "bfloat16"
+                   else "float32 outside the tensor cores")
+        emit("kernels", **row)
+        check(ok, f"flash_attention_backward disagrees with its plain version at {name}: {row}")
+        rows[("flash_attention_backward", name)] = row
+        del q, k, v, do, o, lse, lq, lk, lv, lout
+        torch.cuda.empty_cache()
+
+
+def train_cli(steps: int) -> tuple[float, float, float, str]:
+    """``python -m repro_torch.launch.train`` on the card: (wall s, first
+    loss, final loss, the command's output)."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                           TRAIN_ARCH, "--steps", str(steps)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    m = re.search(r"final loss ([0-9.]+) \(start ([0-9.]+)\)", proc.stdout)
+    check(m is not None, f"train CLI printed no final loss: {proc.stdout[-2000:]}")
+    return wall, float(m[2]), float(m[1]), proc.stdout
+
+
+def phase_train(torch, launches: dict, smi: str) -> dict:
+    """granite-3-2b trained at full width and depth in bf16 through
+    ``train_loop.train``; the card against the CPU on every reduced
+    architecture and at full width with 2 layers; resume after a failure;
+    the CLI.  Returns the 6-step run's K4 launches."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import ARCHS, get
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.cca_step import cca_step, fluid_scan
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from repro_torch.kernels.maxmin import maxmin
+    from repro_torch.kernels.steady_scan import steady_scan
+    from repro_torch.launch.analytic import cell_flops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.crosscheck import grads_card_vs_cpu, tame, to_device
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.fault import FailureInjector, InjectedFailure
+    from repro_torch.train.train_loop import TrainConfig, make_train_step, train, value_and_grad
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get(TRAIN_ARCH)
+    m = build_model(cfg)
+    per_step = {"forward": 2 * cfg.n_layers, "backward": cfg.n_layers}   # remat recomputes
+    check(cfg.remat and cfg.param_dtype == "bfloat16" and cfg.opt_dtype == "float32",
+          f"train: {cfg.name} is not the bf16, remat, float32-AdamW config")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = m.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    # The reference's initialiser takes the heads axis as wq's and wk's
+    # fan-in, so full-width logits have a std near 64 (phase_serve says
+    # more): over 40 layers the gradients grow past 1e19 and the global norm
+    # overflows float32 to inf, in which case every step is clipped to
+    # nothing.  That is measured on one batch here and held only to a
+    # finite loss; the run trains on the same weights with wq and wk at a
+    # fan-in of d_model (models/crosscheck.tame).
+    probe_batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
+                   TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                 seed=0).next_batch().items()}
+    probe_loss, probe_grads = value_and_grad(m, params, probe_batch)
+    reference_init = dict(loss=float(probe_loss),
+                          max_abs_grad=max(float(g.float().abs().max())
+                                           for g in leaves(probe_grads)),
+                          global_norm=float(O.global_norm(probe_grads)),
+                          gated="finite loss only")
+    check(math.isfinite(reference_init["loss"]), f"train: reference init {reference_init}")
+    del probe_grads, probe_batch
+    params = tame(params)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1,
+                       opt=O.AdamWConfig(lr=3e-4, warmup=2, total_steps=TRAIN_STEPS,
+                                         state_dtype=O.STATE_DTYPES[cfg.opt_dtype]))
+    kernels = (fluid_scan, cca_step, steady_scan, maxmin)
+    for fn in (flash_attention, flash_attention_backward, *kernels):
+        fn.launches = 0
+    out = train(m, pipe, tcfg, params=params)
+    counts = {"forward": flash_attention.launches, "backward": flash_attention_backward.launches,
+              **{fn.__name__: fn.launches for fn in kernels}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"forward": TRAIN_STEPS * per_step["forward"],
+            "backward": TRAIN_STEPS * per_step["backward"], **{fn.__name__: 0 for fn in kernels}}
+    check(counts == want, f"train: launches {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"])
+          and min(out["grad_norms"]) > 0, f"train: losses {out['losses']}, "
+          f"grad norms {out['grad_norms']}")
+    step_s = sorted(out["step_seconds"][1:])[len(out["step_seconds"][1:]) // 2]   # steps 2-6
+    tokens = TRAIN_B * TRAIN_S
+    cell = ShapeCell("train", TRAIN_S, TRAIN_B, "train")
+    model_flops = cell_flops(cfg, cell, remat=False)["total"]
+    hw_flops = cell_flops(cfg, cell, remat=True)["total"]
+
+    # one more step, traced, through make_train_step: exactly one step's launches
+    step_fn = make_train_step(m, tcfg)
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in pipe.next_batch().items()}
+    flash_attention.launches = flash_attention_backward.launches = 0
+    (_, _, _, loss, gn), prof = traced(torch, lambda: step_fn(out["params"], out["opt_state"],
+                                                              None, batch), top_n=8)
+    one = {"forward": flash_attention.launches, "backward": flash_attention_backward.launches}
+    check(one == per_step, f"train: one traced step launched {one}, expected {per_step}")
+    check(math.isfinite(float(loss)) and float(gn) > 0, "train: traced step not finite")
+    emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=m.n_params, param_dtype=cfg.param_dtype, opt_dtype=cfg.opt_dtype,
+         remat=cfg.remat, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS, init_s=init_s,
+         losses=out["losses"], grad_norms=out["grad_norms"], step_s=out["step_seconds"],
+         step_ms_median_2_6=step_s * 1e3, tokens_per_s=tokens / step_s,
+         weights="seeded, wq and wk at a fan-in of d_model (crosscheck.tame)",
+         reference_init_one_batch=reference_init,
+         model_tflop_per_step=model_flops / 1e12, hw_tflop_per_step=hw_flops / 1e12,
+         mfu=model_flops / step_s / BF16_FLOP_PER_S,
+         hw_flops_share=hw_flops / step_s / BF16_FLOP_PER_S,
+         mfu_note="analytic.cell_flops(cfg, ShapeCell('train', 2048, 4, 'train'), remat=False) "
+                  "per step over 989 TFLOP/s; hw: remat=True",
+         max_memory_allocated_gb=peak_gb, launches_6_steps=counts,
+         launches_per_step=per_step, traced_step=prof, card=smi)
+    launches["flash_attention"] += counts["forward"]
+    launches["flash_attention_train"] = counts["forward"]
+    launches["flash_attention_backward"] = counts["backward"]
+    del params, out, batch, step_fn, m
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, float32: every reduced architecture's loss and
+    # gradients; granite at full width with 2 layers
+    rows = {}
+    for name in sorted(ARCHS):
+        rows[name] = grads_card_vs_cpu(name)
+        check(rows[name]["ok"], f"train reduced {name}: card against CPU off: {rows[name]}")
+        del rows[name]["errors"]
+    t0 = time.perf_counter()
+    wide = grads_card_vs_cpu(dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                                 n_layers=2), B=1, S=256)
+    wide_s = time.perf_counter() - t0
+    check(wide["ok"], f"train: granite full width, 2 layers, card against CPU off: {wide}")
+    del wide["errors"]
+
+    # resume on the card after an injected failure, against the CPU
+    small = build_model(ARCHS[TRAIN_ARCH].reduced())
+    start = tame(small.init(0, device="cpu"))
+    resumed = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as td:
+        for dev in ("cuda", "cpu"):
+            rcfg = TrainConfig(steps=12, log_every=1000, ckpt_dir=f"{td}/{dev}", ckpt_every=5,
+                               opt=O.AdamWConfig(lr=1e-3, warmup=2, total_steps=12))
+            mk = lambda: TokenPipeline(vocab=small.cfg.vocab, seq_len=32,  # noqa: E731
+                                       global_batch=4, seed=5)
+            try:                              # (train updates the weights it is given in place)
+                train(small, mk(), rcfg, params=to_device(map_tree(torch.clone, start), dev),
+                      injector=FailureInjector(8), device=dev)
+                check(False, f"train resume: no failure injected on {dev}")
+            except InjectedFailure:
+                pass
+            pipe = mk()
+            resumed[dev] = train(small, pipe, rcfg, params=to_device(map_tree(torch.clone, start),
+                                                                     dev), device=dev)
+            check(resumed[dev]["resumed_from"] == 5 and len(resumed[dev]["losses"]) == 7
+                  and pipe.step == 13, f"train resume on {dev}: {resumed[dev]['resumed_from']}, "
+                  f"{len(resumed[dev]['losses'])} losses, pipeline at {pipe.step}")
+        card, cpu = resumed["cuda"], resumed["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        C.save(f"{td}/final", 12, card["params"], card["opt_state"])
+        back, _ = C.restore(f"{td}/final", template={
+            "params": to_device(card["params"], "cpu"),
+            "opt": to_device(card["opt_state"], "cpu")})
+        bit_equal = all(bool(torch.equal(a, b.cpu())) for a, b in zip(
+            leaves(back), leaves({"params": card["params"], "opt": card["opt_state"]})))
+    check(loss_err <= RESUME_RTOL and bit_equal,
+          f"train resume: card losses off the CPU's by {loss_err}, restored bit-equal {bit_equal}")
+
+    cli_s, first, last, _ = train_cli(20)
+    check(last < first, f"train CLI: loss {first} -> {last}")
+    wall = time.perf_counter() - t_phase
+    emit("train_checks", card_vs_cpu_reduced_f32=rows,
+         card_vs_cpu_full_width_2_layers_f32=dict(**wide, wall_s=wide_s),
+         resume=dict(card_losses=card["losses"], cpu_losses=cpu["losses"],
+                     max_rel_err=loss_err, rtol=RESUME_RTOL, resumed_from=card["resumed_from"],
+                     checkpoint_restores_on_cpu_bit_equal=bit_equal),
+         cli=dict(arch=TRAIN_ARCH, steps=20, wall_s=cli_s, first_loss=first, final_loss=last),
+         phase_wall_s=wall, card=smi)
+    check(wall < TRAIN_PHASE_WALL_S, f"train phase took {wall} s")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1772,7 +2099,7 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = threading.Thread(target=barrier_library)     # K2's barrier probe, beside
     probe.start()
-    libs = load("cca_step", "steady_scan", "maxmin", "flash_attention")
+    libs = load("cca_step", "steady_scan", "maxmin", "flash_attention", "flash_attention_bwd")
     probe.join()
     barrier_library()                                     # raises if its build failed
     emit("build", seconds=time.perf_counter() - t0,
@@ -1791,9 +2118,10 @@ def main() -> int:
     recorded = {name: record_analytic(scn) for name, scn in scenarios.items()}
     maxmin_kernels(torch, recorded, rows)
     flash_kernels(torch, rows)
+    flash_backward_kernels(torch, rows)
 
     launches = {"fluid_scan": 0, "steady_scan": 0, "maxmin": 0, "flash_attention": 0,
-                "flash_attention_zoo": 0}
+                "flash_attention_zoo": 0, "flash_attention_train": 0, "flash_attention_backward": 0}
     fluid_iters = phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
     phase_profile(torch, "gpt@128", scenarios["gpt@128"])
@@ -1805,12 +2133,14 @@ def main() -> int:
         phase_campaign(torch, launches, work, work / "truth", params)
     phase_serve(torch, launches)
     phase_zoo(torch, launches, smi)
+    phase_train(torch, launches, smi)
 
     k1 = rows[("fluid_scan", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
     k3_fused = rows[("steady_scan fused", "moe@1024")]
     k2 = rows[("maxmin", "moe@1024 largest solve")]
     k4 = rows[("flash_attention", "granite prefill bf16 4x32/8x2048x64 causal")]
+    k4b = rows[("flash_attention_backward", "granite train bf16 4x32/8x2048x64 causal")]
     kernels = [
         dict(name="fluid_scan", route="cuda", source="src/repro_torch/csrc/cca_step.cu",
              replaces="src/repro/kernels/cca_step/kernel.py:27",
@@ -1837,14 +2167,29 @@ def main() -> int:
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
              launches_by_path={"serve": launches["flash_attention"]
-                               - launches["flash_attention_zoo"],
-                               "zoo": launches["flash_attention_zoo"]},
+                               - launches["flash_attention_zoo"]
+                               - launches["flash_attention_train"],
+                               "zoo": launches["flash_attention_zoo"],
+                               "train": launches["flash_attention_train"]},
              zoo_cases={name.split(" bf16")[0]: {
                  "launches_per_prefill": per_prefill,
                  **{key: rows[("flash_attention", name)][key]
                     for key in ("max_abs_err", "max_row_rel_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}}
                  for name, (*_, per_prefill) in ZOO_K4_CASES.items()}),
+        dict(name="flash_attention_backward", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:28",
+             launches=launches["flash_attention_backward"], max_abs_err=k4b["max_abs_err"],
+             ms=k4b["ms"], plain_ms=k4b["plain_ms"], bound_ms=k4b["bound_ms"],
+             bound_by=k4b["bound_by"], library_ms=k4b["library_ms"],
+             launches_by_path={"train": launches["flash_attention_backward"]},
+             note="the backward of K4, which the Pallas kernel lacks (the reference trains "
+                  "through autodiff of _sdpa, src/repro/models/layers.py:52)",
+             cases={name.split(" 4x")[0].split(" 2x")[0]: {
+                 key: rows[("flash_attention_backward", name)][key]
+                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")} for name in K4_BWD_CASES}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

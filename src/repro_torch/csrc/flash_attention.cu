@@ -13,7 +13,11 @@
 // float32 whatever the input type; the output is acc / max(l, 1e-30) cast
 // to the input type, so a row with no valid key gives 0 (as ref.py does).
 // Two kernels, one for each input type; `flash_attention_launch` picks by
-// type, never by anything else.
+// type, never by anything else.  When the caller asks for it (a gradient is
+// wanted), both also write each row's log-sum-exp of the scaled logits,
+// m + log(l) in float32 ([B, Hq, S]; +inf for a row with no key), which the
+// backward (flash_attention_bwd.cu) recomputes P from; serving passes no
+// buffer and writes nothing more.
 //
 // What bounds it on Hopper: at the serving path's prefill (granite-3-2b,
 // [4, 32, 2048, 64] queries against [4, 8, 2048, 64] keys, causal, bf16) it
@@ -114,6 +118,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kBQ)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse,
                            int Hq, int group, int S, Strides qs, Strides ks,
                            Strides vs, Strides os, float scale, int causal,
                            int window) {
@@ -218,6 +223,8 @@ __global__ void __launch_bounds__(kBQ)
   }
 
   if (row >= S) return;
+  if (lse != nullptr)
+    lse[static_cast<long long>(bh) * S + row] = l > 0.f ? m + logf(l) : CUDART_INF_F;
   const float denom = fmaxf(l, 1e-30f);
   T* o_row = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
@@ -227,7 +234,7 @@ __global__ void __launch_bounds__(kBQ)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
            int Hq, int Hk, int S, Strides qs, Strides ks, Strides vs,
            Strides os, float scale, int causal, int window,
            cudaStream_t stream) {
@@ -239,7 +246,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
   kernel<<<grid, kBQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hk, S, qs, ks, vs,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hq / Hk, S, qs, ks, vs,
       os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -488,8 +495,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map,
-                              __nv_bfloat16* __restrict__ o, int Hq, int group, int S,
-                              Strides os, float scale_log2, int causal, int window) {
+                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                              int Hq, int group, int S, Strides os, float scale_log2,
+                              int causal, int window) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -670,6 +678,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       return smem + C::kQ + col / C::kBoxCols * C::kBoxBytes + (64 * wg + lr) * C::kRowBytes +
              ((col % C::kBoxCols / 8) ^ (lr % kSwz)) * 16 + col % 8 * 2;
     };
+    if (lse != nullptr && lane % 4 == 0) {   // m is in log2 units of the scaled logits
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < S)
+          lse[static_cast<long long>(blockIdx.x) * S + row0 + 8 * r] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : CUDART_INF_F;
+    }
     const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
 #pragma unroll
     for (int x = 0; x < C::kPvHalves; ++x)
@@ -740,9 +755,9 @@ bool encode(CUtensorMap* map, const void* ptr, int S, int H, int B, Strides st) 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hk,
-           int S, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+           int Hk, int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+           int causal, int window, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!encode<D>(&q_map, q, S, Hq, B, qs) || !encode<D>(&k_map, k, S, Hk, B, ks) ||
       !encode<D>(&v_map, v, S, Hk, B, vs))
@@ -754,8 +769,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (S + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem, stream>>>(q_map, k_map, v_map,
-                                           static_cast<__nv_bfloat16*>(o), Hq, Hq / Hk, S,
-                                           os, scale * 1.4426950408889634f, causal, window);
+                                           static_cast<__nv_bfloat16*>(o), lse, Hq, Hq / Hk,
+                                           S, os, scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -767,11 +782,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
 // (bf16 == 0) or all bfloat16 (bf16 == 1) on the current device, with unit
 // stride along D, the given element strides of the batch, head and sequence
 // axes in whole 16 bytes, 16-byte aligned; o contiguous for bf16.  D is 32,
-// 64 or 128; window <= 0 means no window.  Launches on `stream`; returns the
+// 64 or 128; window <= 0 means no window.  lse is null, or a contiguous
+// float32 [B, Hq, S] that receives each row's log-sum-exp.  Launches on `stream`; returns the
 // launch's cudaError_t (cudaErrorInvalidValue for a D or type it was not
 // built for, or operands the tensor maps refuse).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq,
     int Hk, int S, int D, int bf16, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -782,8 +798,8 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(LAUNCH, DD)                                               \
   if (D == DD)                                                               \
-    return LAUNCH(q, k, v, o, B, Hq, Hk, S, qs, ks, vs, os, scale, causal,   \
-                  window, st);
+    return LAUNCH(q, k, v, o, static_cast<float*>(lse), B, Hq, Hk, S, qs, ks, \
+                  vs, os, scale, causal, window, st);
   if (bf16) {
     FLASH_CASE(tc::launch<32>, 32)
     FLASH_CASE(tc::launch<64>, 64)

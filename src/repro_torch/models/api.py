@@ -1,11 +1,11 @@
 """Unified model facade: ``build_model(cfg)`` returns a Model whose
-prefill/decode entry points serve any registered architecture: the
+loss/prefill/decode entry points serve any registered architecture: the
 decoder-only LM (:mod:`repro_torch.models.lm`) or the encoder-decoder
 (:mod:`repro_torch.models.encdec`).
 
 ``init`` and ``init_cache`` make tensors on the CUDA card unless the caller
 passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`);
-``prefill`` and ``decode_step`` run where the parameters lie.
+``loss``, ``prefill`` and ``decode_step`` run where the parameters lie.
 """
 from __future__ import annotations
 
@@ -58,6 +58,13 @@ class Model:
         return count_params(self.specs)
 
     # -- steps ---------------------------------------------------------- #
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy, a float32 scalar, on the device of
+        the parameters; differentiable (``batch``: ``tokens``, ``labels``,
+        and ``prefix_embeds`` for the stubs)."""
+        fn = encdec.loss_fn if self.is_encdec else lm.loss_fn
+        return fn(self.cfg, params, batch)
+
     def prefill(self, params, batch):
         """``batch``: ``tokens`` ``[B, T]``, and ``prefix_embeds``
         ``[B, P, d]`` for the vision and audio stubs (the encoder-decoder's

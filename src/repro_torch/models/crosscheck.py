@@ -1,19 +1,23 @@
 """One model on two devices: a registered architecture's reduced config in
-float32, served on the card and on the CPU from the same weights, held
-norm-wise.  ``chip_smoke.py``'s zoo phase and the card tests call
-:func:`card_vs_cpu`; the helpers (:func:`tame`, :func:`flatten`,
-:func:`normwise`, :func:`to_device`) serve the CPU parity tests too."""
+float32, served (:func:`card_vs_cpu`) or differentiated
+(:func:`grads_card_vs_cpu`) on the card and on the CPU from the same
+weights, held norm-wise.  ``chip_smoke.py``'s zoo and train phases and the
+card tests call them; the helpers (:func:`tame`, :func:`tame_grads`,
+:func:`flatten`, :func:`normwise`, :func:`to_device`) serve the CPU parity
+tests too."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
 from repro_torch.launch.serve import grow_cache, prompt_positions, seeded_batch
 from repro_torch.models.api import Model, build_model
 
 NORMWISE = 1e-4          # max|card - cpu| <= NORMWISE * max|cpu|, every leaf
 MOE_MAX_ABS = 0.25       # tests/test_archs.py:186, the logits of MoE models besides
+MLSTM_Q_SCALE = 0.1      # tame_grads: mLSTM queries small enough for a well-posed normaliser
 
 
 def tame(tree):
@@ -29,6 +33,29 @@ def tame(tree):
         if a is not None and a.ndim == 4:
             out[w] = a * ((a.shape[2] / a.shape[1]) ** 0.5)
     return out
+
+
+def tame_grads(tree):
+    """:func:`tame`, and every mLSTM query projection (``wq`` ``[R, di,
+    di]``) scaled by :data:`MLSTM_Q_SCALE`.  At the reference's initialiser
+    an mLSTM's normaliser ``max(|sum of scores|, exp(-m))`` takes the
+    scores' sum, which can come near 0, and a 12-layer stack's float32
+    gradients land about 1.3e-4 (norm-wise) from float64 in both packages
+    alike (``tests/test_torch_train_loss.py`` pins that).  Smaller queries
+    let ``exp(-m)`` bound the normaliser, and float32 gradients come
+    within 1e-5 of float64; gradient parity runs on these weights."""
+    out = tame(tree)
+    if not isinstance(out, dict):
+        return out
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: walk(v) for k, v in node.items()}
+        if "w_f" in node and node.get("wq") is not None and node["wq"].ndim == 3:
+            node["wq"] = node["wq"] * MLSTM_Q_SCALE        # an mLSTM mixer
+        return node
+    return walk(out)
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -122,3 +149,61 @@ def card_vs_cpu(name: str, device="cuda", B: int = 2, prompt: int = 80, seed: in
                 worst=worst, **errs[worst], launches=launches,
                 bar=f"norm-wise {NORMWISE}" + (f"; argmax, max abs {MOE_MAX_ABS}"
                                                if cfg.moe_experts else ""))
+
+
+def train_batch(cfg: ArchConfig, B: int, S: int, seed: int, device="cpu") -> dict:
+    """A training batch laid out as the reference's ``smoke_batch``
+    (``tests/test_archs.py:22``): S decoder tokens and labels beside S
+    audio frames, or ``cfg.n_patches`` vision patches before ``S -
+    n_patches`` tokens; drawn on the CPU from ``seed``, then moved."""
+    gen = torch.Generator().manual_seed(seed)
+    tok = lambda s: torch.randint(0, cfg.vocab, (B, s), generator=gen)  # noqa: E731
+    emb = lambda n: torch.randn((B, n, cfg.d_model), generator=gen)  # noqa: E731
+    if cfg.enc_dec:
+        batch = {"prefix_embeds": emb(S), "tokens": tok(S), "labels": tok(S)}
+    elif cfg.frontend == "vision_patches":
+        batch = {"prefix_embeds": emb(cfg.n_patches), "tokens": tok(S - cfg.n_patches),
+                 "labels": tok(S - cfg.n_patches)}
+    else:
+        batch = {"tokens": tok(S), "labels": tok(S)}
+    return to_device(batch, device)
+
+
+def grads_card_vs_cpu(arch: str | ArchConfig, device="cuda", B: int = 2, S: int = 64,
+                      seed: int = 3) -> dict:
+    """The loss and the gradient of every parameter leaf of ``arch`` (a
+    registered name: its reduced config; or a config, which must be
+    float32) on ``device`` against the CPU, TF32 off, on weights drawn on
+    the CPU from ``seed`` (:func:`tame_grads`) and copied over.  Every leaf
+    is held at :data:`NORMWISE`.  On the card, ``flash_attention`` must
+    launch once a self-attention layer (twice under remat) and its backward
+    once.  Returns the errors, the launches and ``ok`` with the failures."""
+    from repro_torch.train.train_loop import value_and_grad
+    m = build_model(ARCHS[arch].reduced() if isinstance(arch, str) else arch)
+    cfg = m.cfg
+    if cfg.param_dtype != "float32":
+        raise ValueError(f"{cfg.name}: card against CPU runs in float32, not {cfg.param_dtype}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_params = tame_grads(m.init(seed, device="cpu"))
+        params = to_device(cpu_params, device)
+        batch = train_batch(cfg, B, S, seed)
+        n0 = flash_attention.launches, flash_attention_backward.launches
+        loss, grads = value_and_grad(m, params, to_device(batch, device))
+        n1 = flash_attention.launches, flash_attention_backward.launches
+        want_loss, want = value_and_grad(m, cpu_params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {"loss": normwise(loss, want_loss),
+            **{f"grad{k}": normwise(g, flatten(want)[k]) for k, g in flatten(grads).items()}}
+    failures = [f"{k}: {e}" for k, e in errs.items() if not e["normwise_err"] <= NORMWISE]
+    launches = {"forward": n1[0] - n0[0], "backward": n1[1] - n0[1]}
+    layers = attention_layers(m) if torch.device(device).type == "cuda" else 0
+    want_launches = {"forward": layers * (2 if cfg.remat else 1), "backward": layers}
+    if launches != want_launches:
+        failures.append(f"flash_attention launches {launches}, expected {want_launches}")
+    worst = max(errs, key=lambda k: errs[k]["normwise_err"])
+    return dict(ok=not failures, failures=failures, errors=errs, leaves=len(errs),
+                worst=worst, **errs[worst], launches=launches, loss=float(loss),
+                bar=f"norm-wise {NORMWISE}")

@@ -6,6 +6,7 @@ causal self-attention through the kernel, cross-attention to the encoder
 states (plain PyTorch: query and key lengths differ) and the MLP.
 
 Entry points:
+  loss_fn(cfg, params, batch)                   — decoder xent (seq-chunked)
   encode(cfg, params, frames)                   — encoder states
   prefill(cfg, params, batch)                   — (last-token logits, cache)
   decode_step(cfg, params, cache, tokens, pos)  — one token, self cache in place
@@ -14,8 +15,9 @@ The cache is {"self": the decoder's k/v ``[L, B, S, Hk, hd]``, "cross": the
 encoder states' k/v per layer ``[L, B, S_enc, H, hd]``}.  Unlike the
 reference's, :func:`prefill` returns the decoder prompt's self-attention
 k/v too (the reference's holds only "cross", so its decode after a
-multi-token prompt attends to zeros): ROADMAP Queue 3.  The training loss
-is not ported yet (ROADMAP Queue 1).
+multi-token prompt attends to zeros): ROADMAP Queue 3.  ``cfg.remat``
+checkpoints each encoder and decoder layer where a gradient is wanted, as
+the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.lm import layer, stack_layers
+from repro_torch.models.lm import chunked_xent, layer, remat_call, stack_layers
 from repro_torch.models.params import P
 
 
@@ -64,20 +66,30 @@ def _positions(x):
     return torch.arange(T, device=x.device).expand(B, T)
 
 
+def _encoder_layer(cfg, lp, x, positions):
+    x = L.attention(x, lp["attn"], cfg, positions, window=0, causal=False)
+    return L.mlp(x, lp["mlp"])
+
+
 def encode(cfg: ArchConfig, params, frames):
     """frames: ``[B, S_enc, d]`` (the stub frontend's output)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = _pos_add(frames.to(dtype), params["enc_pos"])
     positions = _positions(x)
     for r in range(cfg.n_layers):
-        lp = layer(params["enc"], r)
-        x = L.attention(x, lp["attn"], cfg, positions, window=0, causal=False)
-        x = L.mlp(x, lp["mlp"])
+        x = remat_call(cfg, _encoder_layer, cfg, layer(params["enc"], r), x, positions)
     return L.rms_norm(x, params["enc_ln"])
 
 
 def _embed(cfg, params, tokens):
     return params["embed"][tokens] * (cfg.d_model ** 0.5)
+
+
+def _decoder_layer(cfg, lp, x, positions, enc_out):
+    q, k, v = L.project_qkv(x, lp["self"], cfg, positions)
+    x = L.attend(x, q, k, v, lp["self"], window=0)
+    x = L.attention(x, lp["cross"], cfg, positions, window=0, causal=False, kv_x=enc_out)
+    return L.mlp(x, lp["mlp"]), k, v
 
 
 def _decoder(cfg, params, tokens, enc_out):
@@ -87,13 +99,18 @@ def _decoder(cfg, params, tokens, enc_out):
     positions = _positions(x)
     self_kv = []
     for r in range(cfg.n_layers):
-        lp = layer(params["dec"], r)
-        q, k, v = L.project_qkv(x, lp["self"], cfg, positions)
-        x = L.attend(x, q, k, v, lp["self"], window=0)
-        x = L.attention(x, lp["cross"], cfg, positions, window=0, causal=False, kv_x=enc_out)
-        x = L.mlp(x, lp["mlp"])
+        x, k, v = remat_call(cfg, _decoder_layer, cfg, layer(params["dec"], r), x, positions,
+                             enc_out)
         self_kv.append({"k": k, "v": v})
     return L.rms_norm(x, params["final_ln"]), stack_layers(self_kv)
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """The decoder's next-token cross-entropy over ``labels`` ``[B, S]``,
+    given the frames (``prefix_embeds``) and the decoder tokens."""
+    enc_out = encode(cfg, params, batch["prefix_embeds"])
+    h, _ = _decoder(cfg, params, batch["tokens"], enc_out)
+    return chunked_xent(h, batch["labels"], params["unembed"], cfg.loss_chunk, tail=False)
 
 
 # ------------------------------------------------------------------ #

@@ -34,6 +34,19 @@ from repro_torch.models.params import P
 FP8_E4M3_NAN_ABOVE = 464.0   # XLA rounds |x| > 464 to e4m3fn's NaN; torch saturates to 448
 
 
+@torch.library.custom_op("repro_torch::moe_out", mutates_args=())
+def moe_out(y: torch.Tensor) -> torch.Tensor:
+    """A copy of an MoE layer's output, as an operator of its own: the
+    selective-checkpoint policy of ``remat_policy="save_moe"``
+    (:func:`repro_torch.models.lm.remat_call`) keeps what it returns, as
+    the reference's ``checkpoint_name(y, "moe_out")`` names it."""
+    return y.clone()
+
+
+moe_out.register_fake(torch.empty_like)
+moe_out.register_autograd(lambda ctx, grad: grad)
+
+
 # --------------------------------------------------------------------- #
 # norms / rope
 # --------------------------------------------------------------------- #

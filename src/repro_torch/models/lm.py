@@ -1,10 +1,11 @@
 """Generic decoder-only LM covering the dense / moe / ssm / hybrid / vlm
-families: the serving path (prefill and decode).  The layer pattern comes
-from ``cfg.stages()``; parameters are stacked over each stage's repeat
-count, as in the reference, and a Python loop over the ``[R, ...]`` slices
-takes the place of its ``lax.scan``.
+families: the training loss and the serving path (prefill and decode).  The
+layer pattern comes from ``cfg.stages()``; parameters are stacked over each
+stage's repeat count, as in the reference, and a Python loop over the
+``[R, ...]`` slices takes the place of its ``lax.scan``.
 
 Entry points:
+  loss_fn(cfg, params, batch)                   — next-token xent (seq-chunked)
   forward_hidden(cfg, params, x, positions)     — the stack's final hidden states
   prefill(cfg, params, batch)                   — (last-token logits, cache)
   decode_step(cfg, params, cache, tokens, pos)  — one token, cache updated in place
@@ -14,11 +15,19 @@ buffer: prefill lays a prompt longer than the window out in ring order
 (slot j holds the last token t with ``t % w == j``) and decode wraps.
 mLSTM and sLSTM prefill run their decode step over the prompt, one Python
 iteration a token, to build the exact recurrent state, as the reference's
-``lax.scan`` does.  The training loss is not ported yet (ROADMAP Queue 1).
+``lax.scan`` does.
+
+``cfg.remat`` checkpoints each layer (:func:`remat_call`) where a gradient
+is wanted, as the reference's ``jax.checkpoint`` around its scan body does;
+``remat_policy="save_moe"`` keeps the MoE outputs through the recompute.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN, ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLP,
                                       MLSTM, MOE, NONE, SLSTM, ArchConfig)
@@ -98,13 +107,54 @@ def _apply_mixer(kind: str, x, p, cfg: ArchConfig, positions):
     raise ValueError(kind)
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def _apply_ffn(kind: str, x, p, cfg: ArchConfig):
     if kind == MLP:
         return L.mlp(x, p)
     if kind == MOE:
-        return L.moe(x, p, cfg)
+        y = L.moe(x, p, cfg)
+        if cfg.remat and cfg.remat_policy == "save_moe" and y.requires_grad:
+            y = L.moe_out(y)                 # the reference's checkpoint_name(y, "moe_out")
+        return y
     if kind != NONE:
         raise ValueError(kind)
+    return x
+
+
+def _save_moe_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.repro_torch.moe_out.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+    a gradient is wanted (grad enabled, a tensor of ``args`` requiring it),
+    so its activations are recomputed in the backward (the reference's
+    ``jax.checkpoint``); serving runs ``fn`` as it is.
+    ``remat_policy="save_moe"`` keeps what
+    :func:`repro_torch.models.layers.moe_out` tagged (its
+    ``save_only_these_names("moe_out")``)."""
+    if not (cfg.remat and torch.is_grad_enabled() and _requires_grad(args)):
+        return fn(*args)
+    kw = {}
+    if cfg.remat_policy == "save_moe":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_moe_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _layer_forward(cfg: ArchConfig, blocks, layer_p, x, positions):
+    for bi, blk in enumerate(blocks):
+        bp = layer_p[f"b{bi}"]
+        x = _apply_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
+        x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
     return x
 
 
@@ -112,11 +162,7 @@ def forward_hidden(cfg: ArchConfig, params, x, positions):
     for si, stage in enumerate(cfg.stages()):
         sp = params[f"stage{si}"]
         for r in range(stage.repeat):
-            layer_p = layer(sp, r)
-            for bi, blk in enumerate(stage.blocks):
-                bp = layer_p[f"b{bi}"]
-                x = _apply_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
-                x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
+            x = remat_call(cfg, _layer_forward, cfg, stage.blocks, layer(sp, r), x, positions)
     return L.rms_norm(x, params["final_ln"])
 
 
@@ -140,6 +186,41 @@ def assemble_input(cfg: ArchConfig, params, batch):
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     return x, positions, offset
+
+
+def chunked_xent(h, labels, unemb, loss_chunk: int, tail: bool = True):
+    """Next-token cross-entropy of hidden states ``h`` ``[B, S, d]`` against
+    ``labels`` ``[B, S]``, summed over chunks of ``loss_chunk`` positions and
+    (``tail``) the tail chunk, over ``B * S``: each chunk's logits in the
+    parameters' dtype, then float32, as the reference's einsum and
+    ``astype`` give them.  Chunks are summed in order from a float32 zero,
+    as its ``lax.scan`` does.  The reference's encoder-decoder loss has no
+    tail chunk (``src/repro/models/encdec.py:88``): its last ``S % C``
+    positions count in the divisor only, and ``tail=False`` keeps that."""
+    B, S = labels.shape
+    C = min(loss_chunk, S)
+    n = S // C
+    bounds = [(i * C, (i + 1) * C) for i in range(n)]
+    if tail and S > n * C:
+        bounds.append((n * C, S))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a, b in bounds:
+        logits = torch.einsum("bcd,dv->bcv", h[:, a:b], unemb).float()
+        gold = torch.gather(logits, -1, labels[:, a:b, None].long())[..., 0]
+        tot = tot + torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+    return tot / (B * S)
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Next-token cross-entropy (``batch``: ``tokens``, ``labels`` ``[B, S]``,
+    and ``prefix_embeds`` for the vision stub, whose positions carry no
+    label), sequence-chunked so the ``[B, S, V]`` logits are never one
+    tensor."""
+    x, positions, offset = assemble_input(cfg, params, batch)
+    h = forward_hidden(cfg, params, x, positions)[:, offset:]
+    labels = batch["labels"]
+    return chunked_xent(h[:, :labels.shape[1]], labels, unembed_matrix(cfg, params),
+                        cfg.loss_chunk)
 
 
 # --------------------------------------------------------------------- #

@@ -3,9 +3,12 @@
 On the CPU ``flash_attention`` runs its plain PyTorch version, which is held
 to the reference's Pallas kernel (in interpret mode, as
 ``tests/test_kernels.py`` runs it) and to its oracle ``attention_ref`` at the
-reference test's shapes and tolerances.  The hand-written CUDA kernel is
-held to the plain version by the ``gpu``-marked tests in
-``tests/test_torch_gpu.py``."""
+reference test's shapes and tolerances.  Its gradient (the autograd
+Function over ``attention_lse_plain`` and ``attention_backward_plain`` on
+the CPU) is held to autograd of ``attention_plain`` and to ``jax.grad`` of
+``attention_ref``.  The hand-written CUDA kernels are held to the plain
+versions by the ``gpu``-marked tests in ``tests/test_torch_gpu.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +16,22 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.flash_attention import (attention_backward_plain,
+                                                 attention_lse_plain, attention_plain,
+                                                 flash_attention, flash_attention_backward)
 
 RNG = np.random.default_rng(13)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: its tensors are small, and
+    under ``pytest -n`` a worker whose threads wait at each op's barrier
+    for cores the other workers hold runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -179,3 +195,85 @@ def test_p_rounded_to_bf16_stays_inside_the_bf16_bar(window):
     plain = attention_plain(tq, tk, tv, causal=True, window=window).float()
     torch.testing.assert_close(got, plain, rtol=2e-2, atol=2e-2)
     assert not torch.equal(got, plain)    # the rounding is there, and small
+
+
+# --------------------------------------------------------------------- #
+# the gradient
+# --------------------------------------------------------------------- #
+GRAD_NORMWISE = {"float32": 1e-5, "bfloat16": 2e-2}   # max|port - ref| over max|ref|
+GRAD_CASES = CASES + [
+    (1, 4, 2, 96, 32, True, None),      # D 32
+    (1, 4, 2, 100, 128, True, 16),      # D 128, window, ragged
+    (2, 6, 3, 77, 64, False, None),     # bidirectional, GQA 2, ragged
+]
+
+
+def _normwise(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _jax_grads(q, k, v, do, **kw):
+    """jax.grad of sum(attention_ref(q, k, v) * do) with respect to q, k, v."""
+    return jax.grad(lambda q, k, v: jnp.sum(attention_ref(q, k, v, **kw) * do),
+                    argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hk,S,D,causal,window", GRAD_CASES)
+def test_backward_plain_matches_autograd_and_jax_grad(B, Hq, Hk, S, D, causal, window,
+                                                      dtype):
+    """``attention_backward_plain`` from the saved output and log-sum-exp
+    equals autograd of ``attention_plain`` (float32 rounding apart), the
+    wrapper's autograd Function gives exactly ``attention_backward_plain``,
+    and all of them match ``jax.grad`` of the reference's oracle on the same
+    (bf16-rounded) inputs; the log-sum-exp matches ``jax.nn.logsumexp`` of
+    the oracle's masked logits."""
+    kw = dict(causal=causal, window=window)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(tdt).requires_grad_() for x in _qkv(B, Hq, Hk, S, D))
+    do = torch.from_numpy(RNG.normal(size=(B, Hq, S, D)).astype(np.float32)).to(tdt)
+    out = attention_plain(q, k, v, **kw)
+    auto = torch.autograd.grad(out, (q, k, v), do)
+    lse = attention_lse_plain(q.detach(), k.detach(), **kw)
+    plain = attention_backward_plain(q.detach(), k.detach(), v.detach(), out.detach(), do,
+                                     lse, **kw)
+    via = flash_attention(q, k, v, **kw)
+    assert type(via.grad_fn).__name__ == "_FlashAttentionBackward"
+    via = torch.autograd.grad(via, (q, k, v), do)
+    wide = [x.detach().float().numpy() for x in (q, k, v, do)]
+    jgrads = _jax_grads(*wide, **kw)
+    logits = np.einsum("bhqd,bhkd->bhqk", wide[0], np.repeat(wide[1], Hq // Hk, 1)) * D ** -0.5
+    i = np.arange(S)
+    mask = np.ones((S, S), bool) if not causal else i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    want_lse = jax.nn.logsumexp(jnp.where(mask, logits, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+    tol = GRAD_NORMWISE[dtype]
+    for name, p, a, w, j in zip("qkv", plain, auto, via, jgrads):
+        assert p.dtype == tdt and p.shape == a.shape
+        assert torch.equal(w, p), name
+        assert _normwise(p.float(), a.float()) <= tol, name
+        for got in (p, a):
+            assert _normwise(got.float(), j) <= tol, name
+
+
+def test_gradient_path_only_where_a_gradient_is_wanted():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 1, 16, 32))
+    assert flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert flash_attention(q, k, v.requires_grad_()).grad_fn is None
+    n = flash_attention.launches, flash_attention_backward.launches
+    flash_attention(q, k, v).sum().backward()
+    assert v.grad is not None and q.grad is None
+    assert (flash_attention.launches, flash_attention_backward.launches) == n   # CPU
+
+
+def test_backward_wrapper_refuses_mismatched_saved_tensors():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 1, 16, 32))
+    o, lse = attention_plain(q, k, v), attention_lse_plain(q, k)
+    for args in ((o[:, :, :8], o, lse), (o, o.double(), lse), (o, o, lse[:, :1]),
+                 (o, o, lse.double())):
+        with pytest.raises(ValueError):
+            flash_attention_backward(q, k, v, *args)

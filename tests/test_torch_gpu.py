@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions; the fluid engine and the serving path through them
-against their CPU runs; the learned engine's fit and predict on the card
-against the CPU.
+PyTorch versions; the fluid engine, the serving path and the training path
+through them against their CPU runs; the learned engine's fit and predict
+on the card against the CPU.
 
 Every test here takes the ``cuda`` fixture and skips where there is no
 card.  The file imports no JAX (the machine with the card has none); the
@@ -20,7 +20,9 @@ from repro_torch.api import (FlowSpec, Scenario, TopologySpec, compare, run, run
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels.cca_step import cca_step, cca_step_plain, fluid_scan, fluid_scan_plain
 from repro_torch.kernels.cca_step.ops import workspace_bytes
-from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.flash_attention import (attention_backward_plain, attention_plain,
+                                                 flash_attention, flash_attention_backward)
+from repro_torch.kernels.flash_attention.ops import _forward as flash_forward
 from repro_torch.kernels.maxmin import (maxmin, maxmin_plain, maxmin_rates_arrays,
                                         maxmin_rates_torch)
 from repro_torch.kernels.maxmin.ops import plan
@@ -29,7 +31,11 @@ from repro_torch.launch import serve
 from repro_torch.learned import build_dataset, fit, heldout_fct_error
 from repro_torch.learned import model as learned_model
 from repro_torch.models.api import build_model
-from repro_torch.models.crosscheck import card_vs_cpu, to_device
+from repro_torch.models.crosscheck import (card_vs_cpu, grads_card_vs_cpu, tame,
+                                           to_device, train_batch)
+from repro_torch.models.params import leaves, map_tree
+from repro_torch.train import optimizer as O
+from repro_torch.train.train_loop import TrainConfig, make_train_step
 from repro_torch.net.fluid import fluid_run
 
 pytestmark = pytest.mark.gpu
@@ -457,6 +463,92 @@ def test_reduced_zoo_on_card_matches_cpu(cuda, name):
     (:func:`repro_torch.models.crosscheck.card_vs_cpu`)."""
     res = card_vs_cpu(name, cuda)
     assert res["ok"], res["failures"]
+
+
+# --------------------------------------------------------------------- #
+# the flash-attention backward and the training path
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hk,S,D,causal,window,strided", [
+    *((*case, False) for case in FLASH_CASES),
+    (1, 4, 2, 96, 32, True, None, False),       # D 32
+    (2, 6, 3, 77, 64, False, None, True),       # bidirectional, GQA, ragged, strided views
+    (4, 32, 8, 2048, 64, True, None, True),     # granite-3-2b's training shape, as layers pass it
+    (2, 32, 16, 2048, 128, True, 1024, False),  # gemma3-27b's local layers
+    (2, 20, 20, 1500, 64, False, None, False),  # whisper-large-v3's encoder
+])
+def test_flash_attention_backward_kernel_matches_plain(cuda, B, Hq, Hk, S, D, causal, window,
+                                                      strided, dtype):
+    """The backward kernels from the forward's output and log-sum-exp
+    against ``attention_backward_plain`` on the same inputs: dq, dk and dv
+    norm-wise 1e-4 in float32, and within 2e-2 of their own largest |ref|
+    in bf16; a second launch gives the same bits; the forward's
+    log-sum-exp matches the plain one."""
+    from repro_torch.kernels.flash_attention import attention_lse_plain
+    q, k, v, do = (torch.tensor(RNG.normal(size=(B, S, h, D)), dtype=dtype, device=cuda)
+                   .transpose(1, 2) for h in (Hq, Hk, Hk, Hq))
+    if not strided:
+        q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_forward(q, k, v, causal, window, D ** -0.5, True)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, **kw), rtol=1e-5, atol=1e-5)
+    launches = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, o, do, lse, **kw)
+    again = flash_attention_backward(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == launches + 2
+    ref = attention_backward_plain(q, k, v, o, do, lse, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, a2, r in zip("qkv", got, again, ref):
+        assert a.dtype == dtype and a.shape == r.shape and torch.equal(a, a2), name
+        err = float((a.float() - r.float()).abs().max() / r.float().abs().max())
+        assert err <= tol, (name, err)
+
+
+def test_attention_gradients_on_card_reach_the_projections(cuda):
+    """A loss on the card trains attention: ``flash_attention`` under
+    autograd launches the backward kernel once a layer, and the gradients
+    of ``wq``, ``wk`` and ``wv`` are those of the CPU (norm-wise 1e-4)."""
+    res = grads_card_vs_cpu("granite-3-2b", cuda)
+    assert res["ok"], res["failures"]
+    layers = ARCHS["granite-3-2b"].reduced().n_layers
+    assert res["launches"] == {"forward": layers, "backward": layers}
+    for w in ("wq", "wk", "wv"):
+        err = res["errors"][f"grad/stage0/b0/mixer/{w}"]
+        assert err["normwise_err"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_reduced_zoo_gradients_on_card_match_cpu(cuda, name):
+    """Every architecture's loss and the gradient of every parameter leaf
+    on the card against the CPU (:func:`grads_card_vs_cpu`)."""
+    res = grads_card_vs_cpu(name, cuda)
+    assert res["ok"], res["failures"]
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` step of reduced granite (microbatches 2,
+    float32, tamed weights) on the card against the CPU: loss and gradient
+    norm rtol 1e-5, parameters and moments norm-wise 2e-3 (Adam's first
+    step divides each gradient entry by its own magnitude;
+    ``tests/test_torch_train.py`` says why)."""
+    m = build_model(ARCHS["granite-3-2b"].reduced())
+    tcfg = TrainConfig(microbatches=2, opt=O.AdamWConfig(lr=1e-3, warmup=0))
+    cpu_params = tame(m.init(0, device="cpu"))
+    batch = train_batch(m.cfg, 4, 64, seed=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = map_tree(lambda t: t.clone().to(dev), cpu_params)   # the step updates in place
+        step = make_train_step(m, tcfg)
+        params, state, _, loss, gn = step(params, O.init_state(params, tcfg.opt), None,
+                                          to_device(batch, dev))
+        out[str(dev)] = (float(loss), float(gn), [x.cpu() for x in leaves(params)],
+                         [x.cpu() for x in leaves(state["m"])])
+    (l0, g0, p0, m0), (l1, g1, p1, m1) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    np.testing.assert_allclose(g1, g0, rtol=1e-5)
+    for a, b in (*zip(p1, p0), *zip(m1, m0)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
 
 
 # --------------------------------------------------------------------- #

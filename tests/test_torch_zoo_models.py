@@ -328,13 +328,6 @@ def test_grow_cache_keeps_rings_and_recurrent_state():
     assert float(cache["stage0"]["b0"]["m"].max()) > -1e29      # the stabiliser moved
 
 
-def test_training_entry_points_are_not_ported_yet():
-    """The training loss waits for ROADMAP Queue 1's training item: neither
-    model module nor the facade offers one yet."""
-    assert not hasattr(lm, "loss_fn") and not hasattr(encdec, "loss_fn")
-    assert not hasattr(build_model(ARCHS["granite-3-2b"].reduced()), "loss")
-
-
 @pytest.mark.parametrize("name", ALL)
 def test_card_vs_cpu_check_holds_every_leaf(name):
     """The card-against-CPU check that ``chip_smoke.py`` and the ``gpu``
