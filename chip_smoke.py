@@ -8,7 +8,10 @@ Phases, one JSON line each:
 1. device   the card's name, count and power limit (exits 1 with no card);
 2. build    nvcc builds the port's kernels from ``src/repro_torch/csrc``
             (one nvcc per source, all started together), with ptxas's
-            register / shared-memory / spill report;
+            register / shared-memory / spill report; K4's bf16 forward
+            kernels and every kernel of its backward must not spill, and
+            both libraries' SASS must hold HGMMA (``wgmma``) instructions
+            where the toolkit has cuobjdump;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes of the fluid engine's real phases and of the analytic
             engine's largest solves (plus the max-min solver's ceiling and
@@ -130,8 +133,12 @@ Phases, one JSON line each:
             local window, whisper's bidirectional encoder and a strided
             view (float32 norm-wise 1e-4; bf16 each gradient within 2e-2 of
             its own largest |ref|; two launches bit-identical), with its
-            time, bound and the time of SDPA's backward under autograd (the
-            library yardstick, which the port never calls); granite-3-2b at
+            time, bound, the kernels a call launches (bf16: the delta
+            pre-pass and the tensor-core ``dq_kernel`` and ``dkv_kernel``;
+            float32: the two SIMT kernels) and their split under
+            ``torch.profiler``, and the time of SDPA's backward under
+            autograd (the library yardstick, which the port never calls);
+            granite-3-2b at
             full width and depth in bf16: one batch's gradients on the
             reference's initialiser (held to a finite loss only: their
             global norm overflows float32), then 6 steps through
@@ -141,7 +148,8 @@ Phases, one JSON line each:
             norms, exactly 80 K4 forward launches a step (40, and 40
             recomputed) and 40 backward launches, no K1-K3 launch; step ms,
             tokens/s, MFU against 989 TFLOP/s, peak memory, and one step
-            under ``torch.profiler``; every reduced architecture's loss and
+            under ``torch.profiler`` (with K4's kernels' share of it);
+            every reduced architecture's loss and
             gradients card against CPU (norm-wise 1e-4) and granite at full
             width with 2 layers in float32; reduced granite failing at step
             8 and resuming from step 5, its losses those of the CPU (rtol
@@ -279,22 +287,43 @@ def ptxas_report(lib, fragment: str) -> dict:
     return kernels
 
 
-def tensor_core_report(lib) -> dict:
-    """Registers and spills of K4's bf16 kernel from ptxas's report (it must
-    not spill), and, where the toolkit has cuobjdump, how many tensor-core
-    instructions (HGMMA: wgmma; HMMA: mma.sync) its SASS holds."""
+def tensor_core_report(lib, fragment: str) -> dict:
+    """Registers and spills, from ptxas's report, of the kernels of ``lib``
+    whose mangled names hold ``fragment``, by ``namespace::name<D>`` (none
+    may spill); and, where the toolkit has cuobjdump, how many tensor-core
+    instructions (HGMMA: wgmma; HMMA: mma.sync) the library's SASS holds,
+    of which some must be HGMMA: its bf16 kernels run on the tensor cores."""
     from repro_torch.kernels.build import find_nvcc
-    kernels = {"D" + name.split("flash_attention_tc_kernelILi")[1].split("E")[0]: v
-               for name, v in ptxas_report(lib, "flash_attention_tc_kernelILi").items()}
+    kernels = {}
+    for name, v in ptxas_report(lib, fragment).items():
+        m = re.search(r"(tc|simt)\d+(\w+?)If?Li(\d+)E", name)
+        kernels[f"{m[1]}::{m[2]}<{m[3]}>" if m else name] = v
     check(kernels and all(k.get("spill_bytes") == 0 for k in kernels.values()),
-          f"flash_attention bf16 kernel: spills or no ptxas report: {kernels}")
-    sass = {}
+          f"{lib.path.name}: spills or no ptxas report: {kernels}")
+    sass = "cuobjdump not found"
     cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
     if cuobjdump.exists():
         text = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
                               text=True, timeout=120, check=True).stdout
         sass = {op: text.count(op) for op in ("HGMMA", "HMMA")}
-    return dict(ptxas=kernels, sass_tensor_core_ops=sass or "cuobjdump not found")
+        check(sass["HGMMA"] > 0, f"{lib.path.name}: no HGMMA in its SASS: {sass}")
+    return dict(ptxas=kernels, sass_tensor_core_ops=sass)
+
+
+def kernel_split(torch, fn, n: int = 5) -> dict:
+    """The device kernels one call of ``fn`` launches, by name: launches
+    and device ms per call, from ``torch.profiler`` over ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key):
+            dict(launches_per_call=e.count / n, ms=e.self_device_time_total / 1e3 / n)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 # ---------------------------------------------------------------------- #
@@ -1509,9 +1538,10 @@ def phase_campaign(torch, launches: dict, work: pathlib.Path, truth_dir: pathlib
     check(wall < CAMPAIGN_PHASE_WALL_S, f"campaign phase took {wall} s")
 
 
-def traced(torch, fn, top_n: int = 6):
+def traced(torch, fn, top_n: int = 6, match: tuple[str, ...] = ()):
     """(fn(), its trace): the host wall, the device's busy seconds and share
-    of it, and the kernels with the most device time."""
+    of it, the kernels with the most device time, and the launches and
+    device seconds of the kernels whose names hold each of ``match``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1528,7 +1558,11 @@ def traced(torch, fn, top_n: int = 6):
         traced_wall_s=wall, device_busy_s=busy if busy > 0 else "not measured",
         busy_share=busy / wall if busy > 0 else "not measured",
         kernels=[dict(name=e.key[:70], count=e.count,
-                      device_s=e.self_device_time_total / 1e6) for e in top])
+                      device_s=e.self_device_time_total / 1e6) for e in top],
+        **({"matched": {m: dict(count=sum(e.count for e in rows if m in e.key),
+                                device_s=sum(e.self_device_time_total for e in rows
+                                             if m in e.key) / 1e6) for m in match}}
+           if match else {}))
 
 
 def phase_serve(torch, launches: dict) -> None:
@@ -1856,6 +1890,8 @@ def flash_backward_kernels(torch, rows: dict) -> None:
                       for e in (*errs.values(), *autograd_errs.values())))
         ms, host_ms = device_ms(torch, lambda: flash_attention_backward(q, k, v, o, do, lse, **kw),
                                 n=20)
+        split = kernel_split(torch, lambda: flash_attention_backward(q, k, v, o, do, lse, **kw))
+        per_call = sum(x["launches_per_call"] for x in split.values())
         plain_ms, _ = device_ms(torch, lambda: attention_backward_plain(q, k, v, o, do, lse, **kw),
                                 n=3)
         lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -1883,13 +1919,17 @@ def flash_backward_kernels(torch, rows: dict) -> None:
                    lse_tolerance=LSE_TOL, forward_out_max_abs_err=o_abs, forward_out_ok=o_ok,
                    autograd_vs_plain_autograd=autograd_errs,
                    autograd_through_kernels=through_kernels,
-                   ok=ok, ms=ms, host_ms_per_call=host_ms, plain_ms=plain_ms,
+                   ok=ok, ms=ms, host_ms_per_call=host_ms, kernels_per_call=per_call,
+                   kernel_split=split, plain_ms=plain_ms,
                    library_ms=library_ms, library_call=library_call, gflop=flops / 1e9,
                    tflop_per_s=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
                    bound_rate="bf16 tensor cores" if dtype == "bfloat16"
                    else "float32 outside the tensor cores")
         emit("kernels", **row)
         check(ok, f"flash_attention_backward disagrees with its plain version at {name}: {row}")
+        # bf16: the delta pre-pass, dq_kernel, dkv_kernel; float32: the SIMT dq_kernel, dkv_kernel
+        check(per_call == (3 if dtype == "bfloat16" else 2),
+              f"flash_attention_backward at {name} launched {split}")
         rows[("flash_attention_backward", name)] = row
         del q, k, v, do, o, lse, lq, lk, lv, lout
         torch.cuda.empty_cache()
@@ -1990,8 +2030,9 @@ def phase_train(torch, launches: dict, smi: str) -> dict:
     step_fn = make_train_step(m, tcfg)
     batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in pipe.next_batch().items()}
     flash_attention.launches = flash_attention_backward.launches = 0
-    (_, _, _, loss, gn), prof = traced(torch, lambda: step_fn(out["params"], out["opt_state"],
-                                                              None, batch), top_n=8)
+    (_, _, _, loss, gn), prof = traced(
+        torch, lambda: step_fn(out["params"], out["opt_state"], None, batch), top_n=8,
+        match=("tc::delta_kernel", "tc::dq_kernel", "tc::dkv_kernel", "flash_attention_tc_kernel"))
     one = {"forward": flash_attention.launches, "backward": flash_attention_backward.launches}
     check(one == per_step, f"train: one traced step launched {one}, expected {per_step}")
     check(math.isfinite(float(loss)) and float(gn) > 0, "train: traced step not finite")
@@ -2106,7 +2147,8 @@ def main() -> int:
          ptxas={n: [ln for ln in lib.log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling" in ln]
                 for n, lib in libs.items()},
-         flash_bf16=tensor_core_report(libs["flash_attention"]))
+         flash_bf16=tensor_core_report(libs["flash_attention"], "flash_attention_tc_kernelILi"),
+         flash_backward=tensor_core_report(libs["flash_attention_bwd"], "_kernel"))
 
     rng = np.random.default_rng(0)
     scenarios = {"gpt@128": training_scenario(n_gpus=128, scale=1.0),
@@ -2184,6 +2226,7 @@ def main() -> int:
              ms=k4b["ms"], plain_ms=k4b["plain_ms"], bound_ms=k4b["bound_ms"],
              bound_by=k4b["bound_by"], library_ms=k4b["library_ms"],
              launches_by_path={"train": launches["flash_attention_backward"]},
+             kernels_per_call=k4b["kernels_per_call"], kernel_split=k4b["kernel_split"],
              note="the backward of K4, which the Pallas kernel lacks (the reference trains "
                   "through autodiff of _sdpa, src/repro/models/layers.py:52)",
              cases={name.split(" 4x")[0].split(" 2x")[0]: {

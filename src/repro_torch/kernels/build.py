@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launch function, so
 ``nvcc`` builds it into a shared library in seconds (no PyTorch headers),
 for Hopper (``sm_90a``).  Libraries go to ``build/repro_torch/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  A missing
+repository root, named by a hash of the source, the headers of ``csrc/`` it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  A missing
 ``nvcc`` or a failed build raises: the port never runs a CUDA tensor
 through anything but its kernel.
 """
@@ -15,6 +16,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -53,8 +55,14 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    """The source and its library, named by a hash of the source, the
+    ``csrc/`` headers it includes (``#include "x.cuh"``) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    text = src.read_bytes()
+    digest = hashlib.sha256(text)
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        digest.update((CSRC / header.decode()).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

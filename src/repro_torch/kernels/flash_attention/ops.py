@@ -13,9 +13,10 @@ Gradients: when grad is enabled and an input requires it,
 :func:`flash_attention` is a ``torch.autograd.Function`` whose forward also
 keeps each row's log-sum-exp and whose backward is
 :func:`flash_attention_backward` (``repro_torch/csrc/flash_attention_bwd.cu``
-on the card, :func:`attention_backward_plain` on the CPU).  The Pallas
-kernel is forward only; the reference trains through autodiff of its
-plain ``_sdpa``.
+on the card: bf16 on the tensor cores, a pre-pass and the ``wgmma`` + TMA
+kernels ``dq_kernel`` and ``dkv_kernel``; float32 two SIMT kernels;
+:func:`attention_backward_plain` on the CPU).  The Pallas kernel is forward
+only; the reference trains through autodiff of its plain ``_sdpa``.
 
 Layout as in the reference: q is ``[B, Hq, S, D]``, k and v ``[B, Hk, S, D]``
 with ``Hq % Hk == 0``; query head h reads KV head ``h // (Hq // Hk)``.  The
@@ -90,7 +91,8 @@ def attention_backward_plain(q, k, v, o, dout, lse, *, causal: bool = True,
     float32 and returned in the inputs' dtypes: ``P = exp(s - lse)``,
     ``dS = P * (dO v^T - rowsum(dO * o))``, ``dq = scale dS k``,
     ``dk = scale dS^T q`` and ``dv = P^T dO`` summed over the query heads
-    that share a KV head.  The same arithmetic as the CUDA backward."""
+    that share a KV head.  The same arithmetic as the CUDA backward, whose
+    bf16 kernels also round P and dS to bf16 before the products."""
     B, Hq, S, D = q.shape
     Hk = k.shape[1]
     g = Hq // Hk
@@ -236,9 +238,12 @@ def flash_attention_backward(q, k, v, o, dout, lse, *, causal: bool = True,
     """(dq, dk, dv) of :func:`flash_attention` at its output ``o`` and
     log-sum-exp ``lse`` (float32 ``[B, Hq, S]``), for the upstream gradient
     ``dout``, in the inputs' dtype.  On CUDA tensors this launches the
-    backward kernels, ``dq_kernel`` then ``dkv_kernel``, and counts the
-    call as one in ``flash_attention_backward.launches``: the counter counts
-    backward calls, each of two kernel launches.  On CPU tensors it runs
+    backward kernels and counts the call as one in
+    ``flash_attention_backward.launches``: the counter counts backward
+    calls.  A bf16 call launches three kernels (``delta_kernel``, the
+    pre-pass, then the tensor-core ``dq_kernel`` and ``dkv_kernel``), a
+    float32 call two (the SIMT ``dq_kernel``, which also computes delta,
+    then ``dkv_kernel``).  On CPU tensors it runs
     :func:`attention_backward_plain`."""
     dev, B, Hq, Hk, S, D = _check_inputs(q, k, v, window)
     same_device({"q": q, "o": o, "dout": dout, "lse": lse})
@@ -256,7 +261,10 @@ def flash_attention_backward(q, k, v, o, dout, lse, *, causal: bool = True,
         raise ValueError(f"flash_attention_backward: B*Hq = {B * Hq} exceeds the kernel's grid")
     q, k, v, o, dout = (_kernel_operand(x) for x in (q, k, v, o, dout))
     lse = lse.contiguous()
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    # float32: delta; bf16: lse * log2(e) and delta, rows padded to whole 128-row blocks
+    scratch = torch.empty((2, B, Hq, -(-S // 128) * 128) if bf16 else (B, Hq, S),
+                          dtype=torch.float32, device=dev)
     dq = torch.empty((B, Hq, S, D), dtype=q.dtype, device=dev)
     dk, dv = (torch.empty((B, Hk, S, D), dtype=q.dtype, device=dev) for _ in range(2))
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, dout, dq, dk, dv)
@@ -264,8 +272,8 @@ def flash_attention_backward(q, k, v, o, dout, lse, *, causal: bool = True,
     with torch.cuda.device(dev):
         err = _backward_launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Hq, Hk, S, D, int(q.dtype == torch.bfloat16), strides,
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Hq, Hk, S, D, int(bf16), strides,
             scale, int(causal), window or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")

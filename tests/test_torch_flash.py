@@ -6,8 +6,10 @@ to the reference's Pallas kernel (in interpret mode, as
 reference test's shapes and tolerances.  Its gradient (the autograd
 Function over ``attention_lse_plain`` and ``attention_backward_plain`` on
 the CPU) is held to autograd of ``attention_plain`` and to ``jax.grad`` of
-``attention_ref``.  The hand-written CUDA kernels are held to the plain
-versions by the ``gpu``-marked tests in ``tests/test_torch_gpu.py``."""
+``attention_ref``, and so is a CPU emulation of the bf16 backward kernels'
+arithmetic (P and dS rounded to bf16 before the products).  The
+hand-written CUDA kernels are held to the plain versions by the
+``gpu``-marked tests in ``tests/test_torch_gpu.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,6 +259,59 @@ def test_backward_plain_matches_autograd_and_jax_grad(B, Hq, Hk, S, D, causal, w
         assert _normwise(p.float(), a.float()) <= tol, name
         for got in (p, a):
             assert _normwise(got.float(), j) <= tol, name
+
+
+def _backward_bf16_tensor_cores(q, k, v, o, dout, lse, *, causal, window):
+    """The bf16 backward kernels' arithmetic on the CPU: float32 logits from
+    the bf16 inputs, ``P = exp(s - lse)`` and ``delta = rowsum(dO * O)``
+    (from the bf16 O and dO) in float32, ``dS = P (dO V^T - delta)``; P and
+    dS rounded to bf16 before the four products ``dV = P^T dO``,
+    ``dK = scale dS^T Q`` and ``dQ = scale dS K``, which accumulate in
+    float32; the gradients in bf16."""
+    B, Hq, S, D = q.shape
+    Hk = k.shape[1]
+    g = Hq // Hk
+    scale = D ** -0.5
+    kk, vv = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    mask = (j <= i) if causal else torch.ones(S, S, dtype=torch.bool)
+    if window is not None:
+        mask &= j > i - window
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+    do = dout.float()
+    delta = (do * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vv) - delta)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do).view(B, Hk, g, S, D).sum(2)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).view(B, Hk, g, S, D).sum(2) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,Hq,Hk,S,D,causal,window", GRAD_CASES + [
+    (1, 8, 2, 256, 64, True, None),     # granite-3-2b's head layout (32/8 heads of 64)
+])
+def test_p_and_ds_rounded_to_bf16_stay_inside_the_bf16_bar(B, Hq, Hk, S, D, causal, window):
+    """The tensor-core backward's numerics (P and dS rounded to bf16 before
+    the products) are within the bf16 gradient bar of
+    ``attention_backward_plain`` and of ``jax.grad`` of the reference's
+    oracle on the same bf16-rounded inputs."""
+    kw = dict(causal=causal, window=window)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(B, Hq, Hk, S, D))
+    do = torch.from_numpy(RNG.normal(size=(B, Hq, S, D)).astype(np.float32)).to(torch.bfloat16)
+    o = attention_plain(q, k, v, **kw)
+    lse = attention_lse_plain(q, k, **kw)
+    got = _backward_bf16_tensor_cores(q, k, v, o, do, lse, **kw)
+    plain = attention_backward_plain(q, k, v, o, do, lse, **kw)
+    jgrads = _jax_grads(*(x.float().numpy() for x in (q, k, v, do)), **kw)
+    tol = GRAD_NORMWISE["bfloat16"]
+    for name, a, p, j in zip("qkv", got, plain, jgrads):
+        assert a.dtype == torch.bfloat16 and a.shape == p.shape, name
+        assert _normwise(a.float(), p.float()) <= tol, name
+        assert _normwise(a.float(), j) <= tol, name
+    assert not all(torch.equal(a, p) for a, p in zip(got, plain))   # the rounding is there
 
 
 def test_gradient_path_only_where_a_gradient_is_wanted():

@@ -476,6 +476,11 @@ def test_reduced_zoo_on_card_matches_cpu(cuda, name):
     (4, 32, 8, 2048, 64, True, None, True),     # granite-3-2b's training shape, as layers pass it
     (2, 32, 16, 2048, 128, True, 1024, False),  # gemma3-27b's local layers
     (2, 20, 20, 1500, 64, False, None, False),  # whisper-large-v3's encoder
+    # the edges of the bf16 kernels' 128-row blocks and 64-row tiles
+    (1, 4, 2, 40, 64, True, None, False),       # S below one tile
+    (1, 4, 2, 333, 64, True, 100, True),        # ragged S, a window across tiles
+    (2, 56, 8, 1088, 128, True, None, False),   # llava-next-34b's heads: GQA 7 at D 128
+    (2, 8, 2, 200, 32, True, None, True),       # D 32, strided views
 ])
 def test_flash_attention_backward_kernel_matches_plain(cuda, B, Hq, Hk, S, D, causal, window,
                                                       strided, dtype):
