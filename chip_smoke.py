@@ -155,7 +155,21 @@ Phases, one JSON line each:
             8 and resuming from step 5, its losses those of the CPU (rtol
             1e-4) and its checkpoint restoring on the CPU bit-equal; and
             ``python -m repro_torch.launch.train`` on the card with its loss
-            falling.
+            falling;
+14. parallel the multi-device layer: granite-3-2b's train step at full
+            width and depth on a 1-rank NCCL group, its parameters and AdamW
+            state DTensors on a (1, 1) ``("data", "model")`` mesh by the
+            sharding rules, the activation constraint installed: 3 steps
+            through ``make_train_step`` (80 K4 forward launches and 40
+            backward calls each), step 1's loss and gradient norm within
+            1e-6 of the plain step's, step ms beside phase train's, peak
+            memory, ``CommDebugMode``'s collectives and, from a fourth step
+            under ``torch.profiler``, the busy share; then five production
+            dry-run cells (``DRYRUN_CELLS``) traced by a child process
+            started after those steps, with fake CUDA tensors on fake
+            process groups of 256 and 512 ranks: each record ``ok``, with
+            its trace seconds, per-device argument and peak bytes, traced
+            against analytic collective bytes and roofline terms.
 
 Then the kernels line, the ``nvidia-smi`` name/power line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -212,6 +226,26 @@ K4_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # each gradient, over its own
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)  # the forward's float32 log-sum-exp, both dtypes
 RESUME_RTOL = 1e-4                    # resumed losses, card vs CPU
 TRAIN_PHASE_WALL_S = 300              # a guard on the time limit
+PARALLEL_RTOL = 1e-6                  # step 1's loss and gradient norm, sharded vs plain
+PARALLEL_STEPS = 3                    # sharded train steps (a fourth, traced, for the busy share)
+# production dry-run cells, traced on fake process groups in a child
+# process that runs alone after phase parallel's steps (nothing of it runs on
+# the card, and no timed phase shares the host with it)
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"), ("granite-3-2b", "train_4k", "multi"),
+                ("mistral-large-123b", "prefill_32k", "single"),
+                ("mixtral-8x22b", "decode_32k", "single"),
+                ("jamba-v0.1-52b", "long_500k", "single"))
+DRYRUN_CHILD = """
+import json, pathlib, sys
+from repro_torch.launch import dryrun as D
+out, cells = pathlib.Path(sys.argv[1]), json.loads(sys.argv[2])
+for mesh in ("single", "multi"):
+    with D.fake_world(D.MESH_WORLD[mesh]):
+        for arch, shape, kind in cells:
+            if kind == mesh:
+                D.run_cell(arch, shape, mesh, out, device="cuda")
+"""
+DRYRUN_WAIT_S = 400                   # the child's whole wall, at most
 
 
 def emit(phase: str, **fields) -> None:
@@ -1954,7 +1988,7 @@ def phase_train(torch, launches: dict, smi: str) -> dict:
     """granite-3-2b trained at full width and depth in bf16 through
     ``train_loop.train``; the card against the CPU on every reduced
     architecture and at full width with 2 layers; resume after a failure;
-    the CLI.  Returns the 6-step run's K4 launches."""
+    the CLI.  Returns the median step seconds of steps 2-6."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeCell
@@ -2115,7 +2149,174 @@ def phase_train(torch, launches: dict, smi: str) -> dict:
          cli=dict(arch=TRAIN_ARCH, steps=20, wall_s=cli_s, first_loss=first, final_loss=last),
          phase_wall_s=wall, card=smi)
     check(wall < TRAIN_PHASE_WALL_S, f"train phase took {wall} s")
-    return counts
+    return step_s
+
+
+def run_dryrun(work: pathlib.Path) -> subprocess.CompletedProcess:
+    """The production dry-run cells of phase parallel, traced in a child
+    process (``launch.dryrun`` on fake process groups: nothing is allocated
+    on the card and nothing runs); its records go to ``work``."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-c", DRYRUN_CHILD, str(work),
+                           json.dumps(DRYRUN_CELLS)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=DRYRUN_WAIT_S)
+
+
+def phase_parallel(torch, launches: dict, smi: str, train_step_s: float) -> None:
+    """(a) granite-3-2b's train step at full width and depth on a 1-rank
+    NCCL group: the parameters and AdamW state DTensors on a (1, 1)
+    ``("data", "model")`` mesh by ``rules_for``/``resolve``, the activation
+    constraint installed, 3 steps through ``make_train_step`` (80 K4
+    forward launches and 40 backward calls each), step 1's loss and
+    gradient norm against the undistributed step on the same weights and
+    batch (``PARALLEL_RTOL``), a fourth step traced for the busy share; the
+    group is destroyed before (b).  (b) the production dry-run cells
+    (``DRYRUN_CELLS``), traced by the child of ``run_dryrun``: each record
+    ``ok``."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from repro_torch.models.api import build_model
+    from repro_torch.models.crosscheck import tame
+    from repro_torch.parallel import act_sharding
+    from repro_torch.parallel.sharding import (batch_axes, distribute, placements, resolve,
+                                               rules_for)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import TrainConfig, make_train_step, value_and_grad
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get(TRAIN_ARCH)
+    m = build_model(cfg)
+    per_step = {"forward": 2 * cfg.n_layers, "backward": cfg.n_layers}   # remat recomputes
+    params = tame(m.init(0))            # phase train's weights and batches
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
+                pipe.next_batch().items()} for _ in range(PARALLEL_STEPS + 1)]
+    plain_loss, grads = value_and_grad(m, params, batches[0])
+    plain = {"loss": float(plain_loss), "grad_norm": float(O.global_norm(grads))}
+    del grads
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    steps = []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rules = rules_for(cfg, mesh, "train", TRAIN_S, TRAIN_B, n_params=m.n_params)
+        dparams = distribute(params, m.param_axes(), rules, mesh)
+        dbatches = [distribute(b, batch_axes(b), rules, mesh) for b in batches]
+        spec = resolve(("act_batch", "act_seq", None), (TRAIN_B, TRAIN_S, cfg.d_model),
+                       {**rules, "act_seq": "model"}, mesh)
+        act_sharding.install(mesh, placements(spec, mesh))
+        tcfg = TrainConfig(steps=PARALLEL_STEPS,
+                           opt=O.AdamWConfig(lr=3e-4, warmup=2, total_steps=TRAIN_STEPS,
+                                             state_dtype=O.STATE_DTYPES[cfg.opt_dtype]))
+        step_fn = make_train_step(m, tcfg)
+        opt = O.init_state(dparams, tcfg.opt)
+        value = lambda t: float(t.full_tensor() if isinstance(t, DTensor) else t)  # noqa: E731
+        with implicit_replication():
+            for i, batch in enumerate(dbatches):
+                flash_attention.launches = flash_attention_backward.launches = 0
+                comm = CommDebugMode() if i == 0 else None
+                traced_step = i == PARALLEL_STEPS
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if comm is not None:
+                    with comm:
+                        dparams, opt, _, loss, gn = step_fn(dparams, opt, None, batch)
+                        loss, gn = value(loss), value(gn)
+                    prof = None
+                elif traced_step:
+                    (dparams, opt, _, loss, gn), prof = traced(
+                        torch, lambda b=batch: step_fn(dparams, opt, None, b), top_n=6,
+                        match=("tc::dq_kernel", "tc::dkv_kernel", "flash_attention_tc_kernel"))
+                    loss, gn = value(loss), value(gn)
+                else:
+                    dparams, opt, _, loss, gn = step_fn(dparams, opt, None, batch)
+                    loss, gn = value(loss), value(gn)
+                    prof = None
+                steps.append(dict(loss=loss, grad_norm=gn, seconds=time.perf_counter() - t0,
+                                  launches={"forward": flash_attention.launches,
+                                            "backward": flash_attention_backward.launches},
+                                  **({"comm_counts": {str(k): v for k, v in
+                                                      comm.get_comm_counts().items()}}
+                                     if comm is not None else {}),
+                                  **({"traced": prof} if prof is not None else {})))
+        placed = {name: {"spec": resolve(axes, tuple(t.shape), rules, mesh),
+                         "placements": str(t.placements)}
+                  for name, axes, t in (("embed", m.param_axes()["embed"], dparams["embed"]),
+                                        ("wq", m.param_axes()["stage0"]["b0"]["mixer"]["wq"],
+                                         dparams["stage0"]["b0"]["mixer"]["wq"]))}
+    finally:
+        act_sharding.clear()
+        dist.destroy_process_group()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, st in enumerate(steps):
+        check(st["launches"] == per_step, f"parallel: step {i + 1} launched {st['launches']}, "
+              f"expected {per_step}")
+        check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]),
+              f"parallel: step {i + 1} not finite: {st}")
+    first = steps[0]
+    rel = {k: abs(first[k] - plain[k]) / abs(plain[k]) for k in ("loss", "grad_norm")}
+    check(all(r <= PARALLEL_RTOL for r in rel.values()),
+          f"parallel: step 1 {first['loss']}, {first['grad_norm']} against the plain step's "
+          f"{plain}: {rel}")
+    step_ms = sorted(st["seconds"] for st in steps[1:PARALLEL_STEPS])
+    step_ms = step_ms[len(step_ms) // 2] * 1e3 if len(step_ms) % 2 else \
+        sum(step_ms[len(step_ms) // 2 - 1:len(step_ms) // 2 + 1]) / 2 * 1e3
+    prof = steps[-1]["traced"]
+    busy = (prof["device_busy_s"] / (step_ms / 1e3)
+            if isinstance(prof["device_busy_s"], float) else "not measured")
+    launches["flash_attention"] += sum(st["launches"]["forward"] for st in steps)
+    launches["flash_attention_backward"] += sum(st["launches"]["backward"] for st in steps)
+    launches["flash_attention_parallel"] = sum(st["launches"]["forward"] for st in steps)
+    launches["flash_attention_backward_parallel"] = sum(st["launches"]["backward"]
+                                                        for st in steps)
+    emit("parallel", arch=cfg.name, layers=cfg.n_layers, mesh=[1, 1], backend="nccl",
+         batch=TRAIN_B, seq=TRAIN_S, steps=steps, plain_step_1=plain,
+         step_1_rel_err=rel, step_1_bit_equal={k: first[k] == plain[k] for k in plain},
+         rtol=PARALLEL_RTOL, step_ms_median_2_3=step_ms,
+         busy_share=busy, busy_note="the traced step's device seconds over the untraced "
+         "steps' median wall (the profiler's own host cost stretches the traced wall)",
+         train_phase_step_ms_median_2_6=train_step_s * 1e3, sharding=placed,
+         max_memory_allocated_gb=peak_gb, launches_per_step=per_step, card=smi)
+    del dparams, opt, params, batches, dbatches
+    torch.cuda.empty_cache()
+
+    # (b) the production dry-run cells
+    t_dry = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as td:
+        work = pathlib.Path(td)
+        child = run_dryrun(work)
+        check(child.returncode == 0, f"parallel: the dry-run child exited {child.returncode}: "
+              + child.stdout[-3000:])
+        recs = [json.loads((work / f"{arch}__{shape}__{mesh_kind}.json").read_text())
+                for arch, shape, mesh_kind in DRYRUN_CELLS]
+    dry_wall = time.perf_counter() - t_dry
+    check(all(rec["status"] == "ok" for rec in recs), "parallel: dry-run errors: " + "; ".join(
+        f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']} {r['trace'][-1200:]}"
+        for r in recs if r["status"] != "ok"))
+    records = []
+    for rec in recs:
+        records.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "chips", "status", "compile_s", "wall_s", "device",
+            "argument_gb_per_device", "temp_gb_per_device", "est_peak_gb_per_device",
+            "fits_80gb_hbm", "collectives_traced", "collective_bytes_per_chip", "comm_counts",
+            "compute_s", "memory_s", "collective_s", "dominant", "roofline_fraction")})
+    emit("parallel_dryrun", records=records, note="compile_s is the trace's seconds; "
+         "collectives_traced are one device's output bytes of the traced collectives, "
+         "collective_bytes_per_chip the analytic model's", card=smi,
+         dryrun_wall_s=dry_wall, phase_wall_s=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -2125,16 +2326,20 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from repro_torch.api import training_scenario
-    from repro_torch.kernels.build import load
 
     smi = nvidia_smi()
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
     emit("device", **device, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
+    return run_phases(torch, smi, device)
 
+
+def run_phases(torch, smi: str, device: dict) -> int:
     import threading
+
+    from repro_torch.api import training_scenario
+    from repro_torch.kernels.build import load
 
     from hopper_barriers import library as barrier_library
     t0 = time.perf_counter()
@@ -2175,7 +2380,8 @@ def main() -> int:
         phase_campaign(torch, launches, work, work / "truth", params)
     phase_serve(torch, launches)
     phase_zoo(torch, launches, smi)
-    phase_train(torch, launches, smi)
+    train_step_s = phase_train(torch, launches, smi)
+    phase_parallel(torch, launches, smi, train_step_s)
 
     k1 = rows[("fluid_scan", "moe@1024")]
     k3 = rows[("steady_scan", f"[{STEPS}, {k1['F']}] moe@1024")]
@@ -2210,9 +2416,11 @@ def main() -> int:
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
              launches_by_path={"serve": launches["flash_attention"]
                                - launches["flash_attention_zoo"]
-                               - launches["flash_attention_train"],
+                               - launches["flash_attention_train"]
+                               - launches["flash_attention_parallel"],
                                "zoo": launches["flash_attention_zoo"],
-                               "train": launches["flash_attention_train"]},
+                               "train": launches["flash_attention_train"],
+                               "parallel": launches["flash_attention_parallel"]},
              zoo_cases={name.split(" bf16")[0]: {
                  "launches_per_prefill": per_prefill,
                  **{key: rows[("flash_attention", name)][key]
@@ -2225,7 +2433,9 @@ def main() -> int:
              launches=launches["flash_attention_backward"], max_abs_err=k4b["max_abs_err"],
              ms=k4b["ms"], plain_ms=k4b["plain_ms"], bound_ms=k4b["bound_ms"],
              bound_by=k4b["bound_by"], library_ms=k4b["library_ms"],
-             launches_by_path={"train": launches["flash_attention_backward"]},
+             launches_by_path={"train": launches["flash_attention_backward"]
+                               - launches["flash_attention_backward_parallel"],
+                               "parallel": launches["flash_attention_backward_parallel"]},
              kernels_per_call=k4b["kernels_per_call"], kernel_split=k4b["kernel_split"],
              note="the backward of K4, which the Pallas kernel lacks (the reference trains "
                   "through autodiff of _sdpa, src/repro/models/layers.py:52)",

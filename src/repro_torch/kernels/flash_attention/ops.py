@@ -10,8 +10,9 @@ plain version below is the same function in PyTorch, line for line with the
 reference's oracle ``repro.kernels.flash_attention.ref.attention_ref``.
 
 Gradients: when grad is enabled and an input requires it,
-:func:`flash_attention` is a ``torch.autograd.Function`` whose forward also
-keeps each row's log-sum-exp and whose backward is
+:func:`flash_attention`'s operator (``repro_torch::flash_attention``, a
+``torch.library.custom_op`` with a fake implementation and a DTensor
+sharding rule) also keeps each row's log-sum-exp, and its backward is
 :func:`flash_attention_backward` (``repro_torch/csrc/flash_attention_bwd.cu``
 on the card: bf16 on the tensor cores, a pre-pass and the ``wgmma`` + TMA
 kernels ``dq_kernel`` and ``dkv_kernel``; float32 two SIMT kernels;
@@ -194,24 +195,85 @@ def _forward(q, k, v, causal: bool, window: int | None, scale: float, want_lse: 
     return out, lse
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The kernel's forward, keeping the rows' log-sum-exp, and its
-    backward through :func:`flash_attention_backward`."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              scale: float, want_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(output, lse): :func:`_forward` as an operator that fake tensors and
+    DTensor can carry.  ``window`` 0 is no window; without ``want_lse`` the
+    lse is an empty ``[B, Hq, 0]``."""
+    out, lse = _forward(q, k, v, causal, window or None, scale, want_lse)
+    return out, (lse if want_lse else q.new_empty((q.shape[0], q.shape[1], 0),
+                                                  dtype=torch.float32))
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _forward(q, k, v, causal, window, scale, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, scale)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors       # unpacked once: remat recomputes them
-        causal, window, scale = ctx.mask
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse, causal=causal,
-                                              window=window, scale=scale)
-        return dq, dk, dv, None, None, None
+@_flash_op.register_fake
+def _(q, k, v, causal, window, scale, want_lse):
+    _check_inputs(q, k, v, window or None)
+    B, Hq, S, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, Hq, S if want_lse else 0), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _flash_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       dout: torch.Tensor, lse: torch.Tensor, causal: bool, window: int,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_backward` as an operator."""
+    return flash_attention_backward(q, k, v, o, dout, lse, causal=causal,
+                                    window=window or None, scale=scale)
+
+
+@_flash_backward_op.register_fake
+def _(q, k, v, o, dout, lse, causal, window, scale):
+    _check_inputs(q, k, v, window or None)
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, scale, want_lse = inputs
+    if want_lse:                           # only a forward that a gradient wants keeps lse
+        ctx.save_for_backward(q, k, v, *output)
+    ctx.mask = (causal, window, scale)
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors       # unpacked once: remat recomputes them
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(q, k, v, out, dout, lse,
+                                                                *ctx.mask)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _strategies(q, k, n_out: int, n_in: int, n_other: int) -> list:
+    """DTensor strategies of both operators, for one mesh dim (outputs'
+    placements, then the inputs'): all replicated; every tensor sharded on
+    batch (dim 0); or on heads (dim 1), only where the query and the KV
+    heads both divide the whole mesh, so each shard keeps the grouping
+    ``h // (Hq // Hk)`` whichever mesh dims shard the heads.  Never a shard
+    of q's heads beside replicated KV: DTensor redistributes to one of
+    these instead."""
+    from torch.distributed.tensor import Replicate, Shard
+    n = q.mesh.size()
+    heads = (Shard(1),) if q.shape[1] % n == 0 and k.shape[1] % n == 0 else ()
+    return [([p] * n_out, [p] * n_in + [None] * n_other)
+            for p in (Replicate(), Shard(0), *heads)]
+
+
+def _register_sharding() -> None:
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal, window, scale, want_lse):
+        return _strategies(q, k, 2, 3, 4)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_backward.default)
+    def _(q, k, v, o, dout, lse, causal, window, scale):
+        return _strategies(q, k, 3, 6, 3)
+
+
+_register_sharding()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -222,12 +284,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     dims 32, 64 and 128 and raises on anything else.  On CUDA tensors this
     launches the kernel (and counts one launch in
     ``flash_attention.launches``); on CPU tensors it runs
-    :func:`attention_plain`.  Where grad is enabled and an input requires
-    it, the output carries the backward of :class:`_FlashAttention`."""
+    :func:`attention_plain`.  It runs as the operator
+    ``torch.ops.repro_torch.flash_attention``, so fake tensors (their
+    shapes) and DTensors (by the strategies of :func:`_sharding`) go
+    through it too.  Where grad is enabled and an input requires it, the
+    forward also keeps the rows' log-sum-exp and the output carries the
+    backward (``torch.ops.repro_torch.flash_attention_backward``)."""
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale, want_lse=False)[0]
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    want_lse = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window or 0, scale,
+                                                 want_lse)[0]
 
 
 flash_attention.launches = 0

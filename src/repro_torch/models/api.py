@@ -6,6 +6,9 @@ decoder-only LM (:mod:`repro_torch.models.lm`) or the encoder-decoder
 ``init`` and ``init_cache`` make tensors on the CUDA card unless the caller
 passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`);
 ``loss``, ``prefill`` and ``decode_step`` run where the parameters lie.
+``param_axes``, ``param_structs``, ``cache_axes``, ``cache_structs`` and
+``input_specs`` describe every input of a step without allocating it, for
+the sharding rules and the dry-run (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -13,10 +16,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, lm
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (Struct, axes_tree, count_params, init_params,
+                                       shape_structs)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -53,6 +57,12 @@ class Model:
             gen.manual_seed(int(seed))
         return init_params(self.specs, gen, DTYPES[self.cfg.param_dtype])
 
+    def param_axes(self):
+        return axes_tree(self.specs)
+
+    def param_structs(self):
+        return shape_structs(self.specs, DTYPES[self.cfg.param_dtype])
+
     @property
     def n_params(self) -> int:
         return count_params(self.specs)
@@ -88,10 +98,46 @@ class Model:
             return encdec.cache_specs(self.cfg, B, S, S_enc=min(S, 4096), dtype=dtype)
         return lm.cache_specs(self.cfg, B, S, dtype)
 
+    def cache_axes(self):
+        return (encdec.cache_axes if self.is_encdec else lm.cache_axes)(self.cfg)
+
+    def cache_structs(self, B: int, S: int):
+        return _map_cache(lambda sd: Struct(*sd), self.cache_specs(B, S))
+
     def init_cache(self, B: int, S: int, device=None):
         dev = resolve_device(device)
         return _map_cache(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
                           self.cache_specs(B, S))
+
+    # -- input specs per shape cell -------------------------------------- #
+    def input_specs(self, shape: ShapeCell | str) -> dict:
+        """:class:`~repro_torch.models.params.Struct` stand-ins for every
+        input of the cell's step (no allocation), key for key the
+        reference's; token ids are int32 there and here."""
+        cell = SHAPES[shape] if isinstance(shape, str) else shape
+        B, S = cell.global_batch, cell.seq_len
+        cfg = self.cfg
+        tok = lambda b, s: Struct((b, s), torch.int32)                       # noqa: E731
+        emb = lambda b, s: Struct((b, s, cfg.d_model), DTYPES[cfg.dtype])     # noqa: E731
+        if cell.kind == "train":
+            if self.is_encdec:
+                return {"prefix_embeds": emb(B, S), "tokens": tok(B, S), "labels": tok(B, S)}
+            if cfg.frontend == "vision_patches":
+                return {"prefix_embeds": emb(B, cfg.n_patches),
+                        "tokens": tok(B, S - cfg.n_patches),
+                        "labels": tok(B, S - cfg.n_patches)}
+            return {"tokens": tok(B, S), "labels": tok(B, S)}
+        if cell.kind == "prefill":
+            if self.is_encdec:
+                return {"prefix_embeds": emb(B, S), "tokens": tok(B, min(S, 448))}
+            if cfg.frontend == "vision_patches":
+                return {"prefix_embeds": emb(B, cfg.n_patches),
+                        "tokens": tok(B, S - cfg.n_patches)}
+            return {"tokens": tok(B, S)}
+        if cell.kind != "decode":
+            raise ValueError(f"unknown cell kind {cell.kind!r}")
+        return {"cache": self.cache_structs(B, S), "tokens": tok(B, 1),
+                "pos": Struct((), torch.int32)}
 
 
 def build_model(cfg: ArchConfig) -> Model:

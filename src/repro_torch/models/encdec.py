@@ -27,6 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.lm import chunked_xent, layer, remat_call, stack_layers
 from repro_torch.models.params import P
+from repro_torch.parallel.act_sharding import block_input
 
 
 def _xattn_specs(cfg, R):
@@ -67,8 +68,8 @@ def _positions(x):
 
 
 def _encoder_layer(cfg, lp, x, positions):
-    x = L.attention(x, lp["attn"], cfg, positions, window=0, causal=False)
-    return L.mlp(x, lp["mlp"])
+    x = L.attention(block_input(x), lp["attn"], cfg, positions, window=0, causal=False)
+    return L.mlp(block_input(x), lp["mlp"])
 
 
 def encode(cfg: ArchConfig, params, frames):
@@ -78,18 +79,20 @@ def encode(cfg: ArchConfig, params, frames):
     positions = _positions(x)
     for r in range(cfg.n_layers):
         x = remat_call(cfg, _encoder_layer, cfg, layer(params["enc"], r), x, positions)
-    return L.rms_norm(x, params["enc_ln"])
+    return L.rms_norm(block_input(x), params["enc_ln"])
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens] * (cfg.d_model ** 0.5)
+    return L.embed(params["embed"], tokens) * (cfg.d_model ** 0.5)
 
 
 def _decoder_layer(cfg, lp, x, positions, enc_out):
+    x = block_input(x)
     q, k, v = L.project_qkv(x, lp["self"], cfg, positions)
     x = L.attend(x, q, k, v, lp["self"], window=0)
-    x = L.attention(x, lp["cross"], cfg, positions, window=0, causal=False, kv_x=enc_out)
-    return L.mlp(x, lp["mlp"]), k, v
+    x = L.attention(block_input(x), lp["cross"], cfg, positions, window=0, causal=False,
+                    kv_x=block_input(enc_out))
+    return L.mlp(block_input(x), lp["mlp"]), k, v
 
 
 def _decoder(cfg, params, tokens, enc_out):
@@ -102,7 +105,7 @@ def _decoder(cfg, params, tokens, enc_out):
         x, k, v = remat_call(cfg, _decoder_layer, cfg, layer(params["dec"], r), x, positions,
                              enc_out)
         self_kv.append({"k": k, "v": v})
-    return L.rms_norm(x, params["final_ln"]), stack_layers(self_kv)
+    return L.rms_norm(block_input(x), params["final_ln"]), stack_layers(self_kv)
 
 
 def loss_fn(cfg: ArchConfig, params, batch):
@@ -127,14 +130,21 @@ def cache_specs(cfg: ArchConfig, B: int, S: int, S_enc: int, dtype):
     }
 
 
+def cache_axes(cfg: ArchConfig):
+    """Logical axes of the cache tree (mirrors :func:`cache_specs`)."""
+    a = ("layers", "act_batch", "cache_seq", "kv", "head")
+    ax = ("layers", "act_batch", "cache_seq", "heads", "head")
+    return {"self": {"k": a, "v": a}, "cross": {"k": ax, "v": ax}}
+
+
 def cross_kv(cfg, params, enc_out):
     """Every decoder layer's cross-attention k and v of the encoder states."""
     ks, vs = [], []
     for r in range(cfg.n_layers):
         cp = layer(params["dec"]["cross"], r)
-        h = L.rms_norm(enc_out, cp["ln"])
-        ks.append(torch.einsum("btd,dhk->bthk", h, cp["wk"]))
-        vs.append(torch.einsum("btd,dhk->bthk", h, cp["wv"]))
+        h = L.rms_norm(block_input(enc_out), cp["ln"])
+        ks.append(L.heads_proj("btd,dhk->bthk", h, cp["wk"]))
+        vs.append(L.heads_proj("btd,dhk->bthk", h, cp["wv"]))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -155,11 +165,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     x = x + params["dec_pos"][pos % params["dec_pos"].shape[0]]
     for r in range(cfg.n_layers):
         lp = layer(params["dec"], r)
-        x, _ = L.attention_decode(x, lp["self"], cfg, layer(cache["self"], r), pos, window=0)
+        x, _ = L.attention_decode(block_input(x), lp["self"], cfg, layer(cache["self"], r),
+                                  pos, window=0)
         cp = lp["cross"]
-        q = torch.einsum("bsd,dhk->bshk", L.rms_norm(x, cp["ln"]), cp["wq"])
+        q = L.heads_proj("bsd,dhk->bshk", L.rms_norm(block_input(x), cp["ln"]), cp["wq"])
         o = L.cross_attend(q, cache["cross"]["k"][r], cache["cross"]["v"][r])
-        x = x + torch.einsum("bshk,hkd->bsd", o, cp["wo"])
-        x = L.mlp(x, lp["mlp"])
-    h = L.rms_norm(x, params["final_ln"])
+        x = x + L.heads_out("bshk,hkd->bsd", o, cp["wo"])
+        x = L.mlp(block_input(x), lp["mlp"])
+    h = L.rms_norm(block_input(x), params["final_ln"])
     return torch.einsum("bsd,dv->bsv", h, params["unembed"])[:, 0], cache

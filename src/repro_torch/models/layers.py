@@ -27,9 +27,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.params import P
+from repro_torch.parallel.act_sharding import (block_input, on_replicas, replicate, splittable,
+                                               write_at)
 
 FP8_E4M3_NAN_ABOVE = 464.0   # XLA rounds |x| > 464 to e4m3fn's NaN; torch saturates to 448
 
@@ -50,7 +53,22 @@ moe_out.register_autograd(lambda ctx, grad: grad)
 # --------------------------------------------------------------------- #
 # norms / rope
 # --------------------------------------------------------------------- #
+def embed(table, tokens):
+    """``table[tokens]``.  Where the table or the tokens are DTensors that
+    shard anything, ``F.embedding`` of the table with its vocabulary
+    gathered: DTensor shards that (its gradient by
+    ``embedding_dense_backward``) where it cannot shard the gather's
+    backward, an accumulating ``index_put``, and its masked vocabulary-
+    parallel lookup fails beside batch-sharded tokens.  Replicated
+    DTensors index as plain tensors do, to the same bits."""
+    if any(isinstance(t, DTensor) and any(p.is_shard() for p in t.placements)
+           for t in (table, tokens)):
+        return F.embedding(tokens, replicate(table, (0,)))
+    return table[tokens]
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
+    """RMS norm over the last dim."""
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
@@ -87,13 +105,79 @@ def attn_specs(cfg, R: int) -> dict:
     }
 
 
+class _HeadsProj(torch.autograd.Function):
+    """The projection with ``w`` flattened to ``[d, H * k]`` on DTensors:
+    the einsums the plain path's autograd runs, on one rank the same
+    products; the output and the weight's gradient are unflattened to
+    heads where DTensor can split them
+    (:func:`~repro_torch.parallel.act_sharding.splittable`)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        y = torch.einsum("...d,dn->...n", h, w.flatten(1))
+        return splittable(y, -1, w.shape[1]).unflatten(-1, w.shape[1:])
+
+    @staticmethod
+    def backward(ctx, gy):
+        h, w = ctx.saved_tensors
+        gy = gy.flatten(-2)
+        gh = torch.einsum("...n,dn->...d", gy, w.flatten(1))
+        gw = torch.einsum("...d,...n->dn", h, gy)
+        return gh, splittable(gw, -1, w.shape[1]).unflatten(-1, w.shape[1:])
+
+
+class _HeadsOut(torch.autograd.Function):
+    """``o`` ``[..., H, k]`` by ``w`` ``[H, k, d]`` with both flattened to
+    ``H * k`` on DTensors; the gradients are unflattened to heads where
+    DTensor can split them."""
+
+    @staticmethod
+    def forward(ctx, o, w):
+        o = splittable(o, -2, o.shape[-2])
+        ctx.save_for_backward(o, w)
+        return torch.einsum("...n,nd->...d", o.flatten(-2), w.flatten(0, 1))
+
+    @staticmethod
+    def backward(ctx, gy):
+        o, w = ctx.saved_tensors
+        H = w.shape[0]
+        go = torch.einsum("...d,nd->...n", gy, w.flatten(0, 1))
+        gw = torch.einsum("...n,...d->nd", o.flatten(-2), gy)
+        return (splittable(go, -1, H).unflatten(-1, w.shape[:2]),
+                splittable(gw, 0, H).unflatten(0, w.shape[:2]))
+
+
+def heads_out(eq: str, o, w):
+    """``torch.einsum(eq, o, w)`` for an output projection of the heads of
+    ``o`` by ``w`` ``[H, k, d]`` (``eq`` such as ``"bshk,hkd->bsd"``).  On
+    DTensors ``o``'s two contracted dims are moved last and the product runs
+    through :class:`_HeadsOut`, where DTensor's own einsum fails to split a
+    gradient over heads that do not divide the mesh axis (whisper's 20)."""
+    if not isinstance(o, DTensor):
+        return torch.einsum(eq, o, w)
+    left, right = eq.split("->")[0].split(",")
+    o = o.movedim((left.index(right[0]), left.index(right[1])), (-2, -1))
+    return _HeadsOut.apply(o, w)
+
+
+def heads_proj(eq: str, h, w):
+    """``torch.einsum(eq, h, w)`` for a projection of ``h`` ``[..., d]`` by
+    ``w`` ``[d, H, k]`` to ``[..., H, k]``.  On DTensors it runs through
+    :class:`_HeadsProj`, where DTensor's own einsum fails on heads that do
+    not divide the mesh axis (granite's 8 KV heads on a 16-wide axis)."""
+    if not isinstance(h, DTensor):
+        return torch.einsum(eq, h, w)
+    return _HeadsProj.apply(h, w)
+
+
 def project_qkv(x, p, cfg, positions):
     """Normed input projected to rotated q ``[B, S, H, hd]``, rotated k and
     v ``[B, S, Hk, hd]``: k and v are also what the decode cache holds."""
     h = rms_norm(x, p["ln"])
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", h, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", h, p["wv"])
+    q = heads_proj("bsd,dhk->bshk", h, p["wq"])
+    k = heads_proj("btd,dhk->bthk", h, p["wk"])
+    v = heads_proj("btd,dhk->bthk", h, p["wv"])
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -109,7 +193,7 @@ def attend(x, q, k, v, p, window: int, causal: bool = True):
     never shows."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=window or None)
-    return x + torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return x + heads_out("bhsk,hkd->bsd", o, p["wo"])
 
 
 def cross_attend(q, k, v):
@@ -130,10 +214,10 @@ def attention(x, p, cfg, positions, window: int, causal: bool = True, kv_x=None)
         return attend(x, q, k, v, p, window, causal)
     h = rms_norm(x, p["ln"])
     src = rms_norm(kv_x, p["ln"])
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", src, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", src, p["wv"])
-    return x + torch.einsum("bshk,hkd->bsd", cross_attend(q, k, v), p["wo"])
+    q = heads_proj("bsd,dhk->bshk", h, p["wq"])
+    k = heads_proj("btd,dhk->bthk", src, p["wk"])
+    v = heads_proj("btd,dhk->bthk", src, p["wv"])
+    return x + heads_out("bshk,hkd->bsd", cross_attend(q, k, v), p["wo"])
 
 
 def _check_pos(pos: int, T: int) -> None:
@@ -144,11 +228,32 @@ def _check_pos(pos: int, T: int) -> None:
 def _decode_qkv(x, p, cfg, pos: int):
     B = x.shape[0]
     h = rms_norm(x, p["ln"])
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k_new = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v_new = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    q = heads_proj("bsd,dhk->bshk", h, p["wq"])
+    k_new = heads_proj("bsd,dhk->bshk", h, p["wk"])
+    v_new = heads_proj("bsd,dhk->bshk", h, p["wv"])
     posv = torch.full((B, 1), pos, device=x.device)
     return rope(q, posv, cfg.rope_theta), rope(k_new, posv, cfg.rope_theta), v_new
+
+
+def _decode_core(qg, k, v, valid, dtype):
+    """Grouped queries ``[B, 1, Hk, G, hd]`` over the cache ``[B, T, Hk,
+    hd]``, keys where ``valid`` ``[T]``: ``[B, 1, Hk, G, hd]``."""
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * qg.shape[-1] ** -0.5
+    logits = torch.where(valid, logits, -1e30)
+    return torch.einsum("bkgst,btkd->bskgd", _softmax_as(logits, dtype), v)
+
+
+def _decode_core_per_shard(qg, k, v, valid, dtype):
+    """:func:`_decode_core` on DTensors whose cache keeps its sequence
+    whole: every (batch, KV head) is independent, so each rank computes its
+    own shards, q placed as the cache is (no collective; DTensor's einsum
+    would flatten a batch and a head that are both sharded)."""
+    mesh, places = k.device_mesh, k.placements      # batch on dim 0, KV heads on dim 2 of both
+    o = _decode_core(*(t.redistribute(mesh, places).to_local() for t in (qg, k, v)), valid,
+                     dtype)
+    B, S, Hk, G, D = qg.shape
+    return DTensor.from_local(o, mesh, places, run_check=False, shape=qg.shape,
+                              stride=(S * Hk * G * D, Hk * G * D, G * D, D, 1))
 
 
 def _decode_attend(x, q, k, v, p, cfg, valid):
@@ -156,11 +261,11 @@ def _decode_attend(x, q, k, v, p, cfg, valid):
     ``valid`` ``[T]``; the output projection and the residual."""
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    qg = q.reshape(B, 1, Hk, H // Hk, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
-    logits = torch.where(valid, logits, -1e30)
-    o = torch.einsum("bkgst,btkd->bskgd", _softmax_as(logits, x.dtype), v).reshape(B, 1, H, hd)
-    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    qg = splittable(q, 2, Hk).reshape(B, 1, Hk, H // Hk, hd)
+    core = (_decode_core_per_shard if isinstance(k, DTensor)
+            and not any(pl.is_shard(1) for pl in k.placements) else _decode_core)
+    o = core(qg, k, v, valid, x.dtype).reshape(B, 1, H, hd)
+    return x + heads_out("bshk,hkd->bsd", o, p["wo"])
 
 
 def attention_decode(x, p, cfg, cache, pos: int, window: int):
@@ -172,8 +277,8 @@ def attention_decode(x, p, cfg, cache, pos: int, window: int):
     T = k.shape[1]
     _check_pos(pos, T)
     q, k_new, v_new = _decode_qkv(x, p, cfg, pos)
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    write_at(k, pos, k_new[:, 0].to(k.dtype))
+    write_at(v, pos, v_new[:, 0].to(v.dtype))
     kp = torch.arange(T, device=x.device)
     valid = kp <= pos
     if window:
@@ -190,8 +295,8 @@ def ring_decode(x, p, cfg, cache, pos: int, window: int):
     if pos < 0:
         raise IndexError(f"decode position {pos} is negative")
     q, k_new, v_new = _decode_qkv(x, p, cfg, pos)
-    k[:, pos % tbuf] = k_new[:, 0].to(k.dtype)
-    v[:, pos % tbuf] = v_new[:, 0].to(v.dtype)
+    write_at(k, pos % tbuf, k_new[:, 0].to(k.dtype))
+    write_at(v, pos % tbuf, v_new[:, 0].to(v.dtype))
     slots = torch.arange(tbuf, device=x.device)
     slot_pos = pos - torch.remainder(pos - slots, tbuf)    # the token each slot holds
     valid = (slot_pos >= 0) & (slot_pos > pos - window) & (slot_pos <= pos)
@@ -222,11 +327,12 @@ def mla_qkv(x, p, cfg, positions):
     ``[B,S,kv_lora]``, k_rope ``[B,S,rope]``): the last two are what the
     compressed cache holds (the rotary key is shared by all heads)."""
     h = rms_norm(x, p["ln"])
-    q = rms_norm(torch.einsum("bsd,dq->bsq", h, p["wq_a"]), p["q_ln"])
+    # the low-rank projections' norms take their input as a block does
+    q = rms_norm(block_input(torch.einsum("bsd,dq->bsq", h, p["wq_a"])), p["q_ln"])
     q = torch.einsum("bsq,qhk->bshk", q, p["wq_b"])
     q_nope, q_rope = q[..., :cfg.nope_dim], rope(q[..., cfg.nope_dim:], positions, cfg.rope_theta)
     kv = torch.einsum("bsd,dc->bsc", h, p["wkv_a"])
-    c_kv = rms_norm(kv[..., :cfg.kv_lora], p["kv_ln"])
+    c_kv = rms_norm(block_input(kv[..., :cfg.kv_lora]), p["kv_ln"])
     k_rope = rope(kv[..., None, cfg.kv_lora:], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
 
@@ -241,7 +347,7 @@ def _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid):
     logits = logits.float() * (cfg.nope_dim + cfg.rope_dim) ** -0.5
     logits = torch.where(valid, logits, -1e30)
     o = torch.einsum("bhst,bthk->bshk", _softmax_as(logits, x.dtype), v)
-    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return x + heads_out("bshk,hkd->bsd", o, p["wo"])
 
 
 def mla_attention(x, p, cfg, positions, qkv=None):
@@ -260,8 +366,8 @@ def mla_decode(x, p, cfg, cache, pos: int):
     _check_pos(pos, T)
     posv = torch.full((x.shape[0], 1), pos, device=x.device)
     q_nope, q_rope, c_new, kr_new = mla_qkv(x, p, cfg, posv)
-    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+    write_at(c_kv, pos, c_new[:, 0].to(c_kv.dtype))
+    write_at(k_rope, pos, kr_new[:, 0].to(k_rope.dtype))
     valid = torch.arange(T, device=x.device) <= pos
     return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid), cache
 
@@ -357,36 +463,51 @@ def moe_slots(topi, E: int, cap: int):
     return order, torch.where(keep, e_s * cap + pos, E * cap), keep
 
 
+def _dispatch(h, order, slot, k: int, E: int, cap: int, wire: str | None):
+    """Each kept (token, expert) pair's input in its expert's slot: ``[E, cap, d]``."""
+    send = h[order // k]
+    if wire:
+        send = fp8_wire(send, wire)
+    xe = torch.zeros((E * cap + 1, h.shape[1]), dtype=h.dtype, device=h.device)
+    xe[slot] = send                      # dropped pairs all land on the dummy row
+    return xe[:E * cap].reshape(E, cap, h.shape[1])
+
+
+def _combine(ye, topv, order, slot, keep, T: int, k: int):
+    """Each token's k expert outputs ``ye`` ``[E, cap, d]``, weighted by
+    its gates and summed in ascending expert order: ``[T, d]``."""
+    ye = ye.reshape(-1, ye.shape[-1])
+    ye = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))])
+    contrib = ye[slot] * (topv.reshape(-1)[order] * keep)[:, None]
+    # sorted position of each token's pairs, ascending = ascending expert id
+    where = torch.empty_like(order)
+    where[order] = torch.arange(order.numel(), device=ye.device)
+    parts = contrib[where.view(T, k).sort(dim=-1).values]          # [T, k, d]
+    y = parts[:, 0]
+    for i in range(1, k):
+        y = y + parts[:, i]
+    return y
+
+
 def moe_gather(x, p, cfg):
     """Top-k MoE with sort-based dispatch: the pairs are gathered into
     per-expert buffers of ``cap`` slots and their outputs gathered back.
     Each token's k contributions are summed in ascending expert order (the
     order of the reference's ``.at[tok_s].add`` updates), one add at a time
-    in x's dtype: no atomics, so every run gives the same bits."""
+    in x's dtype: no atomics, so every run gives the same bits.  On
+    DTensors the plan, the dispatch and the combine run on whole
+    (replicated) tensors, a global plan as in the reference; the experts
+    run sharded as their weights are."""
     B, S, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
     cap = moe_capacity(cfg, T)
     h = rms_norm(x, p["ln"]).reshape(T, d)
     topv, topi = moe_route(h, p, cfg)
-    order, slot, keep = moe_slots(topi, E, cap)
-    tok_s = order // k
-    send = h[tok_s]
-    if cfg.moe_a2a_dtype:
-        send = fp8_wire(send, cfg.moe_a2a_dtype)
-    xe = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    xe[slot] = send                      # dropped pairs all land on the dummy row
-    ye = _experts(xe[:E * cap].reshape(E, cap, d), p).reshape(E * cap, d)
-    ye = torch.cat([ye, ye.new_zeros((1, d))])
-    contrib = ye[slot] * (topv.reshape(-1)[order] * keep)[:, None]
-    # sorted position of each token's pairs, ascending = ascending expert id
-    where = torch.empty_like(order)
-    where[order] = torch.arange(order.numel(), device=x.device)
-    parts = contrib[where.view(T, k).sort(dim=-1).values]          # [T, k, d]
-    y = parts[:, 0]
-    for i in range(1, k):
-        y = y + parts[:, i]
-    y = y.reshape(B, S, d)
+    order, slot, keep = on_replicas(lambda t: moe_slots(t, E, cap), topi)
+    xe = on_replicas(lambda *a: _dispatch(*a, k, E, cap, cfg.moe_a2a_dtype), h, order, slot)
+    ye = _experts(xe, p)
+    y = on_replicas(lambda *a: _combine(*a, T, k), ye, topv, order, slot, keep).reshape(B, S, d)
     if cfg.moe_shared:
         y = y + _mlp_delta(x, p["shared"])
     return x + y

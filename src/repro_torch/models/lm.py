@@ -34,6 +34,8 @@ from repro_torch.configs.base import (ATTN, ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLP,
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import P
+from repro_torch.parallel.act_sharding import (block_input, constrain, replicate,
+                                               replicated_like)
 
 _ATTN_KINDS = (ATTN, ATTN_GLOBAL, ATTN_LOCAL)
 
@@ -151,11 +153,18 @@ def remat_call(cfg: ArchConfig, fn, *args):
 
 
 def _layer_forward(cfg: ArchConfig, blocks, layer_p, x, positions):
+    """One layer, its input and output constrained to the installed
+    activation sharding (:func:`repro_torch.parallel.act_sharding.constrain`,
+    inside the remat boundary as in the reference).  Each mixer and FFN
+    takes the residual stream laid out by
+    :func:`~repro_torch.parallel.act_sharding.block_input` (its sequence
+    gathered, as GSPMD gathers it where the reference's layer needs it)."""
+    x = constrain(x)   # sequence-parallel activation checkpoints
     for bi, blk in enumerate(blocks):
         bp = layer_p[f"b{bi}"]
-        x = _apply_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
-        x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
-    return x
+        x = _apply_mixer(blk.mixer, block_input(x), bp["mixer"], cfg, positions)
+        x = _apply_ffn(blk.ffn, block_input(x), bp.get("ffn"), cfg)
+    return constrain(x)
 
 
 def forward_hidden(cfg: ArchConfig, params, x, positions):
@@ -163,11 +172,11 @@ def forward_hidden(cfg: ArchConfig, params, x, positions):
         sp = params[f"stage{si}"]
         for r in range(stage.repeat):
             x = remat_call(cfg, _layer_forward, cfg, stage.blocks, layer(sp, r), x, positions)
-    return L.rms_norm(x, params["final_ln"])
+    return L.rms_norm(block_input(x), params["final_ln"])
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens] * (cfg.d_model ** 0.5)
+    return L.embed(params["embed"], tokens) * (cfg.d_model ** 0.5)
 
 
 def unembed_matrix(cfg, params):
@@ -206,7 +215,7 @@ def chunked_xent(h, labels, unemb, loss_chunk: int, tail: bool = True):
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for a, b in bounds:
         logits = torch.einsum("bcd,dv->bcv", h[:, a:b], unemb).float()
-        gold = torch.gather(logits, -1, labels[:, a:b, None].long())[..., 0]
+        gold = torch.gather(replicate(logits, (-1,)), -1, labels[:, a:b, None].long())[..., 0]
         tot = tot + torch.sum(torch.logsumexp(logits, dim=-1) - gold)
     return tot / (B * S)
 
@@ -217,7 +226,7 @@ def loss_fn(cfg: ArchConfig, params, batch):
     label), sequence-chunked so the ``[B, S, V]`` logits are never one
     tensor."""
     x, positions, offset = assemble_input(cfg, params, batch)
-    h = forward_hidden(cfg, params, x, positions)[:, offset:]
+    h = replicate(forward_hidden(cfg, params, x, positions), (1,))[:, offset:]
     labels = batch["labels"]
     return chunked_xent(h[:, :labels.shape[1]], labels, unembed_matrix(cfg, params),
                         cfg.loss_chunk)
@@ -261,6 +270,30 @@ def cache_specs(cfg: ArchConfig, B: int, S: int, dtype):
     return out
 
 
+def cache_axes(cfg: ArchConfig, ring: bool = False):
+    """Logical axes of the cache tree (mirrors :func:`cache_specs`)."""
+    def ax(kind):
+        if cfg.mla and kind == ATTN:
+            return {"c_kv": ("layers", "act_batch", "cache_seq", None),
+                    "k_rope": ("layers", "act_batch", "cache_seq", None)}
+        if kind in _ATTN_KINDS:
+            a = ("layers", "act_batch", "cache_seq", "kv", "head")
+            return {"k": a, "v": a}
+        if kind == MAMBA:
+            return {"h": ("layers", "act_batch", "mlp", None),
+                    "conv": ("layers", "act_batch", None, "mlp")}
+        if kind == MLSTM:
+            return {"C": ("layers", "act_batch", "heads", None, None),
+                    "n": ("layers", "act_batch", "heads", None),
+                    "m": ("layers", "act_batch", "heads")}
+        if kind == SLSTM:
+            return {k: ("layers", "act_batch", "heads", None) for k in ("c", "n", "h", "m")}
+        raise ValueError(kind)
+
+    return {f"stage{si}": {f"b{bi}": ax(blk.mixer) for bi, blk in enumerate(stage.blocks)}
+            for si, stage in enumerate(cfg.stages())}
+
+
 def _decode_mixer(kind: str, x, p, cfg, cache, pos: int):
     if cfg.mla and kind == ATTN:
         return L.mla_decode(x, p, cfg, cache, pos)
@@ -289,10 +322,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         for r in range(stage.repeat):
             layer_p, layer_c = layer(sp, r), layer(cs, r)
             for bi, blk in enumerate(stage.blocks):
-                x, _ = _decode_mixer(blk.mixer, x, layer_p[f"b{bi}"]["mixer"], cfg,
-                                     layer_c[f"b{bi}"], pos)
-                x = _apply_ffn(blk.ffn, x, layer_p[f"b{bi}"].get("ffn"), cfg)
-    h = L.rms_norm(x, params["final_ln"])
+                x, _ = _decode_mixer(blk.mixer, block_input(x), layer_p[f"b{bi}"]["mixer"],
+                                     cfg, layer_c[f"b{bi}"], pos)
+                x = _apply_ffn(blk.ffn, block_input(x), layer_p[f"b{bi}"].get("ffn"), cfg)
+    h = L.rms_norm(block_input(x), params["final_ln"])
     logits = torch.einsum("bsd,dv->bsv", h, unembed_matrix(cfg, params))[:, 0]
     return logits, cache
 
@@ -306,6 +339,7 @@ def ring_order(T: int, w: int, device) -> torch.Tensor:
 def _recurrent_prefill(step, state, x, p, cfg):
     """The decode step over every token of x, from ``state`` (updated in
     place): the exact recurrent state, and each step's output."""
+    state = {k: replicated_like(v, x) for k, v in state.items()}
     ys = [step(x[:, t:t + 1], p, cfg, state, t)[0][:, 0] for t in range(x.shape[1])]
     return torch.stack(ys, 1), state
 
@@ -349,10 +383,11 @@ def prefill(cfg: ArchConfig, params, batch):
             caches = {}
             for bi, blk in enumerate(stage.blocks):
                 bp = layer_p[f"b{bi}"]
-                x, caches[f"b{bi}"] = _prefill_mixer(blk.mixer, x, bp["mixer"], cfg, positions)
-                x = _apply_ffn(blk.ffn, x, bp.get("ffn"), cfg)
+                x, caches[f"b{bi}"] = _prefill_mixer(blk.mixer, block_input(x), bp["mixer"],
+                                                     cfg, positions)
+                x = _apply_ffn(blk.ffn, block_input(x), bp.get("ffn"), cfg)
             per_layer.append(caches)
         cache[f"stage{si}"] = stack_layers(per_layer)
-    h = L.rms_norm(x, params["final_ln"])
+    h = L.rms_norm(block_input(x), params["final_ln"])
     logits = torch.einsum("bd,dv->bv", h[:, -1], unembed_matrix(cfg, params))
     return logits, cache

@@ -1,6 +1,8 @@
 """Parameter specs: every leaf carries a shape, logical axis names and an
-initialiser.  The same tree yields initialised tensors and the parameter
-count (the logical axes wait for the sharding rules).
+initialiser.  The same tree yields initialised tensors, the logical-axis
+tree the sharding rules consume (:func:`axes_tree`), allocation-free
+``(shape, dtype)`` structs for the dry-run (:func:`shape_structs`) and the
+parameter count.
 
 A parameter tree is a nested ``dict`` with tensor leaves, the same keys and
 the same stacked ``[R, ...]`` layer axis as the reference's pytree, so
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +30,17 @@ class P:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+class Struct(NamedTuple):
+    """A tensor's shape and dtype, allocating nothing: the counterpart of
+    ``jax.ShapeDtypeStruct``."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
 
 def map_tree(fn: Callable, tree):
@@ -71,6 +85,16 @@ def params_from_numpy(tree, device: str | torch.device, dtype: torch.dtype):
             a = a.astype(np.float32)
         return torch.from_numpy(np.array(a, order="C")).to(device=device, dtype=dtype)
     return map_tree(mk, tree)
+
+
+def axes_tree(spec_tree):
+    """The logical axes of every leaf, a tree like the parameters."""
+    return map_tree(lambda s: s.axes, spec_tree)
+
+
+def shape_structs(spec_tree, dtype: torch.dtype):
+    """A :class:`Struct` of every leaf in ``dtype``."""
+    return map_tree(lambda s: Struct(tuple(s.shape), dtype), spec_tree)
 
 
 def count_params(spec_tree) -> int:

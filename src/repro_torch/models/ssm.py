@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import P
+from repro_torch.parallel.act_sharding import merge_heads, pointwise, splittable
 
 DT_RANK_DIV = 16
 M_INIT = -1e30          # the stabiliser's start: the first step's input gate wins
@@ -153,9 +154,10 @@ def mlstm_qkv(h, p, cfg):
     hd = di // H
     up = torch.einsum("bsd,de->bse", h, p["up"])
     xin, z = up[..., :di], up[..., di:]
-    q = torch.einsum("bse,ef->bsf", xin, p["wq"]).reshape(B, S, H, hd)
-    k = torch.einsum("bse,ef->bsf", xin, p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
-    v = torch.einsum("bse,ef->bsf", xin, p["wv"]).reshape(B, S, H, hd)
+    q = splittable(torch.einsum("bse,ef->bsf", xin, p["wq"]), -1, H).reshape(B, S, H, hd)
+    k = (splittable(torch.einsum("bse,ef->bsf", xin, p["wk"]), -1, H).reshape(B, S, H, hd)
+         / (hd ** 0.5))
+    v = splittable(torch.einsum("bse,ef->bsf", xin, p["wv"]), -1, H).reshape(B, S, H, hd)
     ig = torch.einsum("bse,eh->bsh", xin, p["w_i"]).float()
     fg = torch.einsum("bse,eh->bsh", xin, p["w_f"]).float()
     return q, k, v, ig, fg, z
@@ -166,9 +168,8 @@ def mlstm(x, p, cfg):
     gates, stabilised by its row max m (xLSTM Eq. 19-27), cast to the
     activation dtype before it weighs the scores, as in the reference."""
     B, S, d = x.shape
-    di = cfg.expand * d
     q, k, v, ig, fg, z = mlstm_qkv(rms_norm(x, p["ln"]), p, cfg)
-    csum = torch.cumsum(F.logsigmoid(fg), dim=1)                  # [B, S, H]
+    csum = torch.cumsum(pointwise(F.logsigmoid, fg), dim=1)                  # [B, S, H]
     # D[s, t] = exp(csum[s] - csum[t] + i[t]) for t <= s
     dmat = csum[:, :, None, :] - csum[:, None, :, :] + ig[:, None, :, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
@@ -178,7 +179,7 @@ def mlstm(x, p, cfg):
     scores = torch.einsum("bshd,bthd->bsth", q, k) * dexp
     norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m[:, :, 0]).to(x.dtype))
     hsa = torch.einsum("bsth,bthd->bshd", scores, v) / norm[..., None]
-    y = hsa.reshape(B, S, di) * p["gn"] * F.silu(z)
+    y = merge_heads(hsa) * p["gn"] * F.silu(z)
     return x + torch.einsum("bse,ed->bsd", y, p["down"])
 
 
@@ -199,7 +200,7 @@ def mlstm_decode(x, p, cfg, cache, pos: int):
     q, k, v, ig, fg, z = mlstm_qkv(rms_norm(x, p["ln"]), p, cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                          # [B, H, hd]
     ig, fg = ig[:, 0], fg[:, 0]                                  # [B, H]
-    logf = F.logsigmoid(fg)
+    logf = pointwise(F.logsigmoid, fg)
     m_new = torch.maximum(logf + cache["m"], ig)
     fdec = torch.exp(logf + cache["m"] - m_new)[..., None]
     iexp = torch.exp(ig - m_new)[..., None]
@@ -252,9 +253,10 @@ def _slstm_step(p, cfg, carry, gates_t):
     hd = cfg.expand * cfg.d_model // H
     c, n, h, m = carry
     rec = torch.einsum("bhk,hkg->bhg", h.to(gates_t.dtype), p["r"])          # [B, H, 4hd]
-    g = gates_t.reshape(B, 4, H, hd).transpose(1, 2).reshape(B, H, 4 * hd) + rec
+    g = splittable(gates_t, 1, 4).reshape(B, 4, H, hd).transpose(1, 2).reshape(B, H, 4 * hd)
+    g = g + rec
     zi, it, fi, oi = g.float().chunk(4, dim=-1)      # it: the input gate, in log space
-    ft = F.logsigmoid(fi)
+    ft = pointwise(F.logsigmoid, fi)
     m_new = torch.maximum(ft + m, it)
     i_ = torch.exp(it - m_new)
     f_ = torch.exp(ft + m - m_new)
@@ -266,7 +268,6 @@ def _slstm_step(p, cfg, carry, gates_t):
 
 def slstm(x, p, cfg):
     B, S, d = x.shape
-    di = cfg.expand * d
     gates = torch.einsum("bsd,dg->bsg", rms_norm(x, p["ln"]), p["w_in"])   # [B, S, 4di]
     st = slstm_state(B, cfg, x.device)
     carry = tuple(st[n] for n in SLSTM_STATE)
@@ -274,7 +275,7 @@ def slstm(x, p, cfg):
     for t in range(S):
         carry, h_t = _slstm_step(p, cfg, carry, gates[:, t])
         hs.append(h_t)
-    y = torch.stack(hs, 1).reshape(B, S, di).to(x.dtype) * p["gn"]
+    y = merge_heads(torch.stack(hs, 1)).to(x.dtype) * p["gn"]
     return x + torch.einsum("bse,ed->bsd", y, p["down"])
 
 

@@ -13,6 +13,13 @@ it returns the same trees.  A leaf stacked over many layers is updated a
 slice of its leading axis at a time (at most :data:`UPDATE_CHUNK`
 elements), so the float32 temporaries stay small; every element's
 arithmetic is the same.
+
+Sharded leaves (DTensors, :mod:`repro_torch.parallel.sharding`): each
+gradient is first placed as its parameter is (a reduce-scatter where
+autograd left it partial), :func:`global_norm` stays a DTensor reduction
+(its all-reduce is the clip's one collective), and the elementwise update
+runs on each leaf's local shard, which is exact for an elementwise rule.
+Plain tensors take exactly the unsharded path.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import leaves, map_tree
 
@@ -51,17 +59,31 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def init_state(params, cfg: AdamWConfig):
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.state_dtype,  # noqa: E731
+                                       memory_format=torch.contiguous_format)
     step_device = leaves(params)[0].device
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
 
 
 def global_norm(tree):
-    tot = 0
+    tot = None
     for g in leaves(tree):
-        tot = tot + torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(g.float()))
+        tot = sq if tot is None else tot + sq
     return torch.sqrt(tot)
+
+
+def _local(x):
+    """A DTensor's local shard (sharing its storage); a plain tensor itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _placed_as(g, p):
+    """Gradient ``g`` placed as its parameter ``p`` is."""
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _slices(*leaves_):
@@ -80,14 +102,19 @@ def update(params, grads, state, cfg: AdamWConfig):
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``, the
     parameters and the moments updated in place."""
     step = state["step"] + 1
+    owners = iter(leaves(params))
+    grads = map_tree(lambda g: _placed_as(g, next(owners)), grads)
     gn = global_norm(grads)
+    if isinstance(gn, DTensor):
+        gn = gn.full_tensor()
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
     lr = schedule(cfg, step)
     stepf = step.float()
     b1c = 1 - cfg.b1 ** stepf
     b2c = 1 - cfg.b2 ** stepf
     for p, g, m, v in (s for leaf in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                                          leaves(state["v"])) for s in _slices(*leaf)):
+                                          leaves(state["v"]))
+                       for s in _slices(*map(_local, leaf))):
         g = g.float() * scale
         m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v2 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)

@@ -241,7 +241,7 @@ def test_backward_plain_matches_autograd_and_jax_grad(B, Hq, Hk, S, D, causal, w
     plain = attention_backward_plain(q.detach(), k.detach(), v.detach(), out.detach(), do,
                                      lse, **kw)
     via = flash_attention(q, k, v, **kw)
-    assert type(via.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert "repro_torch_flash_attention" in type(via.grad_fn).__name__
     via = torch.autograd.grad(via, (q, k, v), do)
     wide = [x.detach().float().numpy() for x in (q, k, v, do)]
     jgrads = _jax_grads(*wide, **kw)

@@ -613,3 +613,106 @@ def test_learned_engine_runs_on_the_card_by_default(cuda):
     cpu = get_engine("learned").run(scn, params=params, device="cpu")
     assert r.extras["learned"]["params_fingerprint"] == params.fingerprint
     np.testing.assert_allclose(list(r.fcts.values()), list(cpu.fcts.values()), rtol=1e-5)
+
+
+def test_flash_operator_bit_equal_to_the_kernels_at_granite_training_shape(cuda):
+    """K4 through its operator (``repro_torch::flash_attention``, its
+    autograd and the backward operator) gives the bits of the kernels
+    called directly (``_forward`` with lse, ``flash_attention_backward``),
+    at granite's training shape in bf16, from strided ``[B, S, H, D]``
+    views as the model hands them over."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mk = lambda H: torch.randn(4, 2048, H, 64, device=cuda, generator=g,  # noqa: E731
+                               dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v = mk(32), mk(8), mk(8)
+    do = torch.randn(4, 32, 2048, 64, device=cuda, generator=g, dtype=torch.bfloat16)
+    o_ref, lse = flash_forward(q, k, v, True, None, 64 ** -0.5, True)
+    grads_ref = flash_attention_backward(q, k, v, o_ref, do, lse, causal=True)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    o = flash_attention(qq, kk, vv, causal=True)
+    grads = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - fwd, flash_attention_backward.launches - bwd) == (1, 1)
+    assert torch.equal(o, o_ref)
+    for got, want in zip(grads, grads_ref):
+        assert torch.equal(got, want)
+
+
+def test_one_rank_dtensor_step_equals_plain_step(cuda, tmp_path):
+    """Reduced granite (remat on, float32) on a 1-rank NCCL group, its
+    parameters DTensors on a (1, 1) mesh with the activation constraint
+    installed: one ``make_train_step`` step's loss and gradient norm within
+    1e-6 of the plain step on the card, and its parameters within 1e-6
+    norm-wise.  In a child process, so this one keeps no process group."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / "step.json"
+    proc = subprocess.run([sys.executable, "-c", _ONE_RANK_STEP, str(out)], cwd=root,
+                          env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(out.read_text())
+    for key in ("loss", "grad_norm"):
+        plain, sharded = res[key]
+        assert sharded == pytest.approx(plain, rel=1e-6), (key, res)
+    assert res["param_normwise"] <= 1e-6, res
+    assert res["launches"] == [[4, 2], [4, 2]], res       # 2 layers, remat: 4 forward, 2 backward
+
+
+_ONE_RANK_STEP = """
+import dataclasses, json, socket, sys
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs.registry import ARCHS
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+from repro_torch.models.api import build_model
+from repro_torch.models.crosscheck import tame
+from repro_torch.models.params import leaves, map_tree
+from repro_torch.parallel import act_sharding
+from repro_torch.parallel import sharding as S
+from repro_torch.train import optimizer as O
+from repro_torch.train.train_loop import TrainConfig, make_train_step
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = dataclasses.replace(ARCHS["granite-3-2b"].reduced(), remat=True)
+m = build_model(cfg)
+start = tame(m.init(0))
+batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in TokenPipeline(
+    vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0).next_batch().items()}
+tcfg = TrainConfig(steps=1, opt=O.AdamWConfig(lr=1e-3, warmup=1, total_steps=10))
+step = make_train_step(m, tcfg)
+res, launches = {}, []
+plain = map_tree(torch.clone, start)
+flash_attention.launches = flash_attention_backward.launches = 0
+plain, _, _, loss1, gn1 = step(plain, O.init_state(plain, tcfg.opt), None, batch)
+launches.append([flash_attention.launches, flash_attention_backward.launches])
+with socket.socket() as s:
+    s.bind(("localhost", 0)); port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+try:
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rules = S.rules_for(cfg, mesh, "train")
+    dp = S.distribute(map_tree(torch.clone, start), m.param_axes(), rules, mesh)
+    db = S.distribute(batch, S.batch_axes(batch), rules, mesh)
+    spec = S.resolve(("act_batch", "act_seq", None), (4, 64, cfg.d_model),
+                     {**rules, "act_seq": "model"}, mesh)
+    act_sharding.install(mesh, S.placements(spec, mesh))
+    flash_attention.launches = flash_attention_backward.launches = 0
+    with implicit_replication():
+        dp, _, _, loss2, gn2 = step(dp, O.init_state(dp, tcfg.opt), None, db)
+        loss2 = float(loss2.full_tensor()) if hasattr(loss2, "full_tensor") else float(loss2)
+    launches.append([flash_attention.launches, flash_attention_backward.launches])
+    err = max(float((a.full_tensor() - b).norm() / b.norm().clamp_min(1e-30))
+              for a, b in zip(leaves(dp), leaves(plain)))
+finally:
+    act_sharding.clear()
+    dist.destroy_process_group()
+json.dump({"loss": [float(loss1), loss2], "grad_norm": [float(gn1), float(gn2)],
+           "param_normwise": err, "launches": launches}, open(sys.argv[1], "w"))
+"""
