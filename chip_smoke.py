@@ -164,7 +164,7 @@ Phases, one JSON line each:
             backward calls each), step 1's loss and gradient norm within
             1e-6 of the plain step's, step ms beside phase train's, peak
             memory, ``CommDebugMode``'s collectives and, from a fourth step
-            under ``torch.profiler``, the busy share; then five production
+            under ``torch.profiler``, the busy share; then seven production
             dry-run cells (``DRYRUN_CELLS``) traced by a child process
             started after those steps, with fake CUDA tensors on fake
             process groups of 256 and 512 ranks: each record ``ok``, with
@@ -234,7 +234,11 @@ PARALLEL_STEPS = 3                    # sharded train steps (a fourth, traced, f
 DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"), ("granite-3-2b", "train_4k", "multi"),
                 ("mistral-large-123b", "prefill_32k", "single"),
                 ("mixtral-8x22b", "decode_32k", "single"),
-                ("jamba-v0.1-52b", "long_500k", "single"))
+                ("jamba-v0.1-52b", "long_500k", "single"),
+                # the recurrences as operators (one op a layer at 32k tokens),
+                # and MLA's core laid out per shard on the 3-D mesh
+                ("xlstm-125m", "prefill_32k", "single"),
+                ("deepseek-v3-671b", "prefill_32k", "multi"))
 DRYRUN_CHILD = """
 import json, pathlib, sys
 from repro_torch.launch import dryrun as D
@@ -344,20 +348,28 @@ def tensor_core_report(lib, fragment: str) -> dict:
     return dict(ptxas=kernels, sass_tensor_core_ops=sass)
 
 
-def kernel_split(torch, fn, n: int = 5) -> dict:
+def kernel_split(torch, fn, n: int = 5, tries: int = 3) -> dict:
     """The device kernels one call of ``fn`` launches, by name: launches
-    and device ms per call, from ``torch.profiler`` over ``n`` calls."""
+    and device ms per call, from ``torch.profiler`` over ``n`` calls.  A
+    capture that is visibly incomplete (no device event, or a kernel seen a
+    number of times that is no multiple of ``n``: the profiler dropped the
+    events of some calls, as it has on some machines) is taken again, up to
+    ``tries`` captures; the last is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events and all(e.count % n == 0 for e in events):
+            break
     return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key):
             dict(launches_per_call=e.count / n, ms=e.self_device_time_total / 1e3 / n)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            for e in events}
 
 
 # ---------------------------------------------------------------------- #
@@ -1738,7 +1750,7 @@ ZOO = [
     ("mixtral-8x22b", 2, 1, 4608, 2),         # window 4096 < prompt; MoE cap 1440
     ("deepseek-v3-671b", 4, 2, 1024, 0),      # 3 dense-first + 1 MoE; MLA, no K4
     ("jamba-v0.1-52b", 8, 2, 2048, 1),        # one period: 7 Mamba, 1 attention, 4 MoE
-    ("xlstm-125m", None, 2, 512, 0),          # mLSTM/sLSTM, recurrent prefill
+    ("xlstm-125m", None, 2, 512, 0),          # mLSTM/sLSTM: one recurrence operator a layer
     ("whisper-large-v3", None, 2, 64, 64),    # 32 encoder (bidirectional) + 32 decoder
     ("llava-next-34b", 8, 2, 512, 8),         # 576 patch embeddings before the prompt
 ]
@@ -1757,7 +1769,11 @@ ZOO_K4_CASES = {
     "llava bf16 2x56/8x1088x128 causal": ((2, 56, 8, 1088, 128), True, None, 8),
 }
 ZOO_PHASE_WALL_S = 300                 # a guard on the time limit
-ZOO_TRACE_PREFILL_S = 1.0              # longer prefills (xlstm's recurrent one) go untraced
+ZOO_TRACE_PREFILL_S = 1.0              # longer prefills go untraced
+# a prefill's time before this slice, printed beside the new one: xlstm's
+# prefill ran its decode step a token at a time until the recurrences became
+# operators
+ZOO_EARLIER_PREFILL_S = {"xlstm-125m": "5.2-7.7 s over two runs, a decode step a token"}
 
 
 def phase_zoo(torch, launches: dict, smi: str) -> None:
@@ -1827,6 +1843,8 @@ def phase_zoo(torch, launches: dict, smi: str) -> None:
              prefix=(tuple(batch["prefix_embeds"].shape[1:2]) if "prefix_embeds" in batch
                      else None), new_tokens=ZOO_NEW, init_s=init_s,
              prefill_s=[r.prefill_s for r in runs],
+             **({"earlier_prefill_s": ZOO_EARLIER_PREFILL_S[arch]}
+                if arch in ZOO_EARLIER_PREFILL_S else {}),
              decode_ms_per_token=[r.decode_s / ZOO_NEW * 1e3 for r in runs],
              flash_attention_launches=runs[0].kernel_launches,
              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,

@@ -62,7 +62,10 @@ from repro_torch.train.train_loop import value_and_grad
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 MESH_WORLD = {"single": 256, "multi": 512}
-BUDGET_S = 900.0     # a cell's trace, at most (xlstm's recurrent 32k prefill would take hours)
+# a cell's trace, at most: a trace past it is an error record, not a hung sweep
+# (the slowest cell, jamba-v0.1-52b train_4k on (2, 16, 16), traces in ~560 s
+# on an 8-core CPU host)
+BUDGET_S = 900.0
 
 
 @contextlib.contextmanager

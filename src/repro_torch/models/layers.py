@@ -25,14 +25,16 @@ does, on every device.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.params import P
-from repro_torch.parallel.act_sharding import (block_input, on_replicas, replicate, splittable,
-                                               write_at)
+from repro_torch.parallel.act_sharding import (block_input, by_heads, on_replicas, replicate,
+                                               splittable, write_at)
 
 FP8_E4M3_NAN_ABOVE = 464.0   # XLA rounds |x| > 464 to e4m3fn's NaN; torch saturates to 448
 
@@ -217,7 +219,7 @@ def attention(x, p, cfg, positions, window: int, causal: bool = True, kv_x=None)
     q = heads_proj("bsd,dhk->bshk", h, p["wq"])
     k = heads_proj("btd,dhk->bthk", src, p["wk"])
     v = heads_proj("btd,dhk->bthk", src, p["wv"])
-    return x + heads_out("bshk,hkd->bsd", cross_attend(q, k, v), p["wo"])
+    return x + heads_out("bshk,hkd->bsd", by_heads(cross_attend, q, k, v), p["wo"])
 
 
 def _check_pos(pos: int, T: int) -> None:
@@ -337,17 +339,26 @@ def mla_qkv(x, p, cfg, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid):
+def _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid, per_shard: bool):
     """Attention of the queries over a compressed cache, keys where
-    ``valid`` (``[S, T]`` or ``[T]``)."""
+    ``valid`` (``[S, T]`` or ``[T]``).  ``per_shard`` (prefill and
+    training, whose keys are the queries' own whole sequence): the core runs
+    on each rank's batch and head shards (:func:`by_heads`); in decode
+    DTensor places it, so a cache sharded along its sequence stays so."""
     kv = torch.einsum("btc,chk->bthk", c_kv, p["wkv_b"])
-    k_nope, v = kv[..., :cfg.nope_dim], kv[..., cfg.nope_dim:]
+    core = functools.partial(_mla_core, cfg.nope_dim, x.dtype, valid)
+    o = (by_heads(core, q_nope, q_rope, kv, k_rope, shared=(3,)) if per_shard
+         else core(q_nope, q_rope, kv, k_rope))
+    return x + heads_out("bshk,hkd->bsd", o, p["wo"])
+
+
+def _mla_core(nope_dim: int, dtype, valid, q_nope, q_rope, kv, k_rope):
+    k_nope, v = kv[..., :nope_dim], kv[..., nope_dim:]
     logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
               + torch.einsum("bshk,btk->bhst", q_rope, k_rope))
-    logits = logits.float() * (cfg.nope_dim + cfg.rope_dim) ** -0.5
+    logits = logits.float() * (nope_dim + q_rope.shape[-1]) ** -0.5
     logits = torch.where(valid, logits, -1e30)
-    o = torch.einsum("bhst,bthk->bshk", _softmax_as(logits, x.dtype), v)
-    return x + heads_out("bshk,hkd->bsd", o, p["wo"])
+    return torch.einsum("bhst,bthk->bshk", _softmax_as(logits, dtype), v)
 
 
 def mla_attention(x, p, cfg, positions, qkv=None):
@@ -355,7 +366,8 @@ def mla_attention(x, p, cfg, positions, qkv=None):
     when the caller already has it (prefill keeps c_kv and k_rope)."""
     q_nope, q_rope, c_kv, k_rope = qkv if qkv is not None else mla_qkv(x, p, cfg, positions)
     pos = positions[0]
-    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, pos[None, :] <= pos[:, None])
+    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, pos[None, :] <= pos[:, None],
+                       per_shard=True)
 
 
 def mla_decode(x, p, cfg, cache, pos: int):
@@ -369,7 +381,7 @@ def mla_decode(x, p, cfg, cache, pos: int):
     write_at(c_kv, pos, c_new[:, 0].to(c_kv.dtype))
     write_at(k_rope, pos, kr_new[:, 0].to(k_rope.dtype))
     valid = torch.arange(T, device=x.device) <= pos
-    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid), cache
+    return _mla_attend(x, p, cfg, q_nope, q_rope, c_kv, k_rope, valid, per_shard=False), cache
 
 
 # --------------------------------------------------------------------- #

@@ -13,9 +13,9 @@ Entry points:
 Sliding-window layers whose cache is no longer than the window keep a ring
 buffer: prefill lays a prompt longer than the window out in ring order
 (slot j holds the last token t with ``t % w == j``) and decode wraps.
-mLSTM and sLSTM prefill run their decode step over the prompt, one Python
-iteration a token, to build the exact recurrent state, as the reference's
-``lax.scan`` does.
+mLSTM and sLSTM prefill run their recurrence over the prompt as one
+operator a layer (:mod:`repro_torch.models.recurrent`), to build the exact
+recurrent state, as the reference's ``lax.scan`` of its decode step does.
 
 ``cfg.remat`` checkpoints each layer (:func:`remat_call`) where a gradient
 is wanted, as the reference's ``jax.checkpoint`` around its scan body does;
@@ -34,8 +34,7 @@ from repro_torch.configs.base import (ATTN, ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLP,
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import P
-from repro_torch.parallel.act_sharding import (block_input, constrain, replicate,
-                                               replicated_like)
+from repro_torch.parallel.act_sharding import block_input, constrain, replicate
 
 _ATTN_KINDS = (ATTN, ATTN_GLOBAL, ATTN_LOCAL)
 
@@ -205,8 +204,11 @@ def chunked_xent(h, labels, unemb, loss_chunk: int, tail: bool = True):
     ``astype`` give them.  Chunks are summed in order from a float32 zero,
     as its ``lax.scan`` does.  The reference's encoder-decoder loss has no
     tail chunk (``src/repro/models/encdec.py:88``): its last ``S % C``
-    positions count in the divisor only, and ``tail=False`` keeps that."""
+    positions count in the divisor only, and ``tail=False`` keeps that.
+    On DTensors ``unemb``'s ``d`` is gathered once (FSDP's gather), so each
+    chunk's logits keep ``h``'s batch shards and are no partial sums."""
     B, S = labels.shape
+    unemb = replicate(unemb, (0,))
     C = min(loss_chunk, S)
     n = S // C
     bounds = [(i * C, (i + 1) * C) for i in range(n)]
@@ -336,14 +338,6 @@ def ring_order(T: int, w: int, device) -> torch.Tensor:
     return T - w + torch.remainder(torch.arange(w, device=device) - T, w)
 
 
-def _recurrent_prefill(step, state, x, p, cfg):
-    """The decode step over every token of x, from ``state`` (updated in
-    place): the exact recurrent state, and each step's output."""
-    state = {k: replicated_like(v, x) for k, v in state.items()}
-    ys = [step(x[:, t:t + 1], p, cfg, state, t)[0][:, 0] for t in range(x.shape[1])]
-    return torch.stack(ys, 1), state
-
-
 def _prefill_mixer(kind: str, x, p, cfg, positions):
     """The mixer over the full sequence and its decode cache.  Attention's k
     and v are computed once, for the attention and the cache (the reference
@@ -363,11 +357,9 @@ def _prefill_mixer(kind: str, x, p, cfg, positions):
     if kind == MAMBA:
         return S.mamba_prefill(x, p, cfg)
     if kind == MLSTM:
-        return _recurrent_prefill(S.mlstm_decode, S.mlstm_state(x.shape[0], cfg, x.device),
-                                  x, p, cfg)
+        return S.mlstm_prefill(x, p, cfg)
     if kind == SLSTM:
-        return _recurrent_prefill(S.slstm_decode, S.slstm_state(x.shape[0], cfg, x.device),
-                                  x, p, cfg)
+        return S.slstm_prefill(x, p, cfg)
     raise ValueError(kind)
 
 

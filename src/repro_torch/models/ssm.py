@@ -11,8 +11,9 @@ state composes at the same boundaries; within a chunk a log-step
 (Hillis-Steele) scan takes the place of ``lax.associative_scan``: the two
 differ in float32 by summation order only.  ``dA`` and ``dBx`` are made
 one chunk at a time, so the ``[B, S, d_inner, d_state]`` tensors never
-materialise.  sLSTM's sequence form is a Python loop over time steps, as
-its reference is a ``lax.scan``.
+materialise.  The mLSTM's and sLSTM's recurrences run as the operators of
+:mod:`repro_torch.models.recurrent`, one op a layer, where the reference
+runs a ``lax.scan``; the mLSTM trains on its parallel form.
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import P
-from repro_torch.parallel.act_sharding import merge_heads, pointwise, splittable
+from repro_torch.models.recurrent import mlstm_scan, mlstm_step, slstm_scan, slstm_step
+from repro_torch.parallel.act_sharding import (by_heads, merge_heads, replicated_like, settled,
+                                               splittable)
 
 DT_RANK_DIV = 16
 M_INIT = -1e30          # the stabiliser's start: the first step's input gate wins
@@ -152,7 +155,7 @@ def mlstm_qkv(h, p, cfg):
     di = cfg.expand * cfg.d_model
     H = cfg.n_heads
     hd = di // H
-    up = torch.einsum("bsd,de->bse", h, p["up"])
+    up = settled(torch.einsum("bsd,de->bse", h, p["up"]))
     xin, z = up[..., :di], up[..., di:]
     q = splittable(torch.einsum("bse,ef->bsf", xin, p["wq"]), -1, H).reshape(B, S, H, hd)
     k = (splittable(torch.einsum("bse,ef->bsf", xin, p["wk"]), -1, H).reshape(B, S, H, hd)
@@ -167,20 +170,26 @@ def mlstm(x, p, cfg):
     """Parallel (quadratic) form: decay matrix from cumulative log forget
     gates, stabilised by its row max m (xLSTM Eq. 19-27), cast to the
     activation dtype before it weighs the scores, as in the reference."""
-    B, S, d = x.shape
     q, k, v, ig, fg, z = mlstm_qkv(rms_norm(x, p["ln"]), p, cfg)
-    csum = torch.cumsum(pointwise(F.logsigmoid, fg), dim=1)                  # [B, S, H]
-    # D[s, t] = exp(csum[s] - csum[t] + i[t]) for t <= s
-    dmat = csum[:, :, None, :] - csum[:, None, :, :] + ig[:, None, :, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    dmat = torch.where(mask[None, :, :, None], dmat, -torch.inf)
-    m = dmat.amax(dim=2, keepdim=True)                           # [B, S, 1, H]
-    dexp = torch.exp(dmat - m).to(x.dtype)                       # [B, S, T, H]
-    scores = torch.einsum("bshd,bthd->bsth", q, k) * dexp
-    norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m[:, :, 0]).to(x.dtype))
-    hsa = torch.einsum("bsth,bthd->bshd", scores, v) / norm[..., None]
+    hsa = by_heads(_mlstm_parallel, q, k, v, ig, fg)
     y = merge_heads(hsa) * p["gn"] * F.silu(z)
     return x + torch.einsum("bse,ed->bsd", y, p["down"])
+
+
+def _mlstm_parallel(q, k, v, ig, fg):
+    """:func:`mlstm`'s core: q, k, v ``[B, S, H, hd]``, ig, fg ``[B, S, H]``
+    to the normalised ``[B, S, H, hd]``, in q's dtype."""
+    S = q.shape[1]
+    csum = torch.cumsum(F.logsigmoid(fg), dim=1)                            # [B, S, H]
+    # D[s, t] = exp(csum[s] - csum[t] + i[t]) for t <= s
+    dmat = csum[:, :, None, :] - csum[:, None, :, :] + ig[:, None, :, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    dmat = torch.where(mask[None, :, :, None], dmat, -torch.inf)
+    m = dmat.amax(dim=2, keepdim=True)                           # [B, S, 1, H]
+    dexp = torch.exp(dmat - m).to(q.dtype)                       # [B, S, T, H]
+    scores = torch.einsum("bshd,bthd->bsth", q, k) * dexp
+    norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m[:, :, 0]).to(q.dtype))
+    return torch.einsum("bsth,bthd->bshd", scores, v) / norm[..., None]
 
 
 def mlstm_state(B: int, cfg, device):
@@ -192,28 +201,32 @@ def mlstm_state(B: int, cfg, device):
             "m": torch.full((B, H), M_INIT, **f32)}
 
 
+def mlstm_prefill(x, p, cfg):
+    """The recurrent form over the whole sequence (``mlstm_scan``), from
+    :func:`mlstm_state`: the layer's output and its decode state {C, n, m}.
+    The projections, the output gate and ``down`` run once over the
+    sequence."""
+    q, k, v, ig, fg, z = mlstm_qkv(rms_norm(x, p["ln"]), p, cfg)
+    st = {name: replicated_like(t, x) for name, t in mlstm_state(x.shape[0], cfg,
+                                                                  x.device).items()}
+    hsa, C, n, m = mlstm_scan(q, k, v, ig, fg, st["C"], st["n"], st["m"])
+    y = merge_heads(hsa).to(x.dtype) * p["gn"] * F.silu(z)
+    return x + torch.einsum("bse,ed->bsd", y, p["down"]), {"C": C, "n": n, "m": m}
+
+
 def mlstm_decode(x, p, cfg, cache, pos: int):
     """Recurrent form: cache {'C': ``[B,H,hd,hd]``, 'n': ``[B,H,hd]``, 'm':
     ``[B,H]``}, all float32: O(1) in context length."""
     B = x.shape[0]
     di = cfg.expand * cfg.d_model
     q, k, v, ig, fg, z = mlstm_qkv(rms_norm(x, p["ln"]), p, cfg)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]                          # [B, H, hd]
-    ig, fg = ig[:, 0], fg[:, 0]                                  # [B, H]
-    logf = pointwise(F.logsigmoid, fg)
-    m_new = torch.maximum(logf + cache["m"], ig)
-    fdec = torch.exp(logf + cache["m"] - m_new)[..., None]
-    iexp = torch.exp(ig - m_new)[..., None]
-    C = cache["C"] * fdec[..., None] + iexp[..., None] * (k[..., :, None] * v[..., None, :])
-    n = cache["n"] * fdec + iexp * k
-    qf = q.float()
-    num = torch.einsum("bhk,bhkv->bhv", qf, C)
-    den = torch.maximum(torch.einsum("bhk,bhk->bh", qf, n).abs(), torch.exp(-m_new))
-    hsa = (num / den[..., None]).reshape(B, 1, di).to(x.dtype) * p["gn"]
+    h, (C, n, m) = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
+                              cache["C"], cache["n"], cache["m"])
+    hsa = h.reshape(B, 1, di).to(x.dtype) * p["gn"]
     y = hsa * F.silu(z)
     cache["C"].copy_(C)
     cache["n"].copy_(n)
-    cache["m"].copy_(m_new)
+    cache["m"].copy_(m)
     return x + torch.einsum("bse,ed->bsd", y, p["down"]), cache
 
 
@@ -245,38 +258,20 @@ def slstm_state(B: int, cfg, device):
             "h": torch.zeros((B, H, hd), **f32), "m": torch.full((B, H, hd), M_INIT, **f32)}
 
 
-def _slstm_step(p, cfg, carry, gates_t):
-    """carry: (c, n, h, m) each ``[B,H,hd]`` float32; gates_t: ``[B, 4di]``
-    before the recurrent term."""
-    B = gates_t.shape[0]
-    H = cfg.n_heads
-    hd = cfg.expand * cfg.d_model // H
-    c, n, h, m = carry
-    rec = torch.einsum("bhk,hkg->bhg", h.to(gates_t.dtype), p["r"])          # [B, H, 4hd]
-    g = splittable(gates_t, 1, 4).reshape(B, 4, H, hd).transpose(1, 2).reshape(B, H, 4 * hd)
-    g = g + rec
-    zi, it, fi, oi = g.float().chunk(4, dim=-1)      # it: the input gate, in log space
-    ft = pointwise(F.logsigmoid, fi)
-    m_new = torch.maximum(ft + m, it)
-    i_ = torch.exp(it - m_new)
-    f_ = torch.exp(ft + m - m_new)
-    c2 = f_ * c + i_ * torch.tanh(zi)
-    n2 = torch.maximum(f_ * n + i_, torch.exp(-m_new))
-    h2 = torch.sigmoid(oi) * (c2 / n2)
-    return (c2, n2, h2, m_new), h2
+def slstm_prefill(x, p, cfg):
+    """The sLSTM over the whole sequence (``slstm_scan``, differentiable),
+    from :func:`slstm_state`: the layer's output and its decode state {c, n,
+    h, m}."""
+    B = x.shape[0]
+    gates = torch.einsum("bsd,dg->bsg", rms_norm(x, p["ln"]), p["w_in"])   # [B, S, 4di]
+    st = [replicated_like(t, x) for t in slstm_state(B, cfg, x.device).values()]
+    hs, *carry = slstm_scan(gates, p["r"], *st)
+    y = merge_heads(hs).to(x.dtype) * p["gn"]
+    return x + torch.einsum("bse,ed->bsd", y, p["down"]), dict(zip(SLSTM_STATE, carry))
 
 
 def slstm(x, p, cfg):
-    B, S, d = x.shape
-    gates = torch.einsum("bsd,dg->bsg", rms_norm(x, p["ln"]), p["w_in"])   # [B, S, 4di]
-    st = slstm_state(B, cfg, x.device)
-    carry = tuple(st[n] for n in SLSTM_STATE)
-    hs = []
-    for t in range(S):
-        carry, h_t = _slstm_step(p, cfg, carry, gates[:, t])
-        hs.append(h_t)
-    y = merge_heads(torch.stack(hs, 1)).to(x.dtype) * p["gn"]
-    return x + torch.einsum("bse,ed->bsd", y, p["down"])
+    return slstm_prefill(x, p, cfg)[0]
 
 
 def slstm_decode(x, p, cfg, cache, pos: int):
@@ -284,7 +279,7 @@ def slstm_decode(x, p, cfg, cache, pos: int):
     B = x.shape[0]
     di = cfg.expand * cfg.d_model
     gates = torch.einsum("bsd,dg->bsg", rms_norm(x, p["ln"]), p["w_in"])[:, 0]
-    carry, h_out = _slstm_step(p, cfg, tuple(cache[n] for n in SLSTM_STATE), gates)
+    carry, h_out = slstm_step(p["r"], tuple(cache[n] for n in SLSTM_STATE), gates)
     for name, t in zip(SLSTM_STATE, carry):
         cache[name].copy_(t)
     y = h_out.reshape(B, 1, di).to(x.dtype) * p["gn"]

@@ -17,8 +17,10 @@ plain tensor as it is, so the single-device path is unchanged.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 _SPEC = None  # (DeviceMesh, placements) | None
 
@@ -57,6 +59,15 @@ def block_input(x):
         places = [p if p.is_shard(0) else Replicate() for p in _SPEC[1]]
         return x if places == list(x.placements) else x.redistribute(x.device_mesh, places)
     return replicate(x, tuple(range(1, x.ndim - 1)))
+
+
+def settled(x):
+    """``x`` itself; on a DTensor, through an identity redistribution, so
+    that its gradient is laid out as ``x`` is before it reaches the op that
+    made ``x`` (DTensor otherwise leaves a gradient where the strategies of
+    ``x``'s consumers put it, which can be a layout that the producer's
+    backward can only reach through a ``_StridedShard``)."""
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
 
 
 def replicate(x, dims: tuple[int, ...]):
@@ -121,6 +132,45 @@ def on_replicas(fn, *args):
         return DTensor.from_local(o, mesh, rep, run_check=False) \
             if isinstance(o, torch.Tensor) else o
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def by_heads(fn, *args, shared: tuple[int, ...] = ()):
+    """``fn(*args)`` for an attention-like core that is independent across
+    batch rows and heads: each tensor argument has its batch at dim 0 and
+    its heads at dim 2 (``[B, T, H, ...]``), save those at the positions
+    ``shared``, which every head reads (``[B, T, ...]``); ``fn`` gives
+    ``[B, S, H, ...]``.  On DTensors each argument is laid out with its
+    batch placed as the first DTensor argument's, its heads sharded over the
+    other mesh dims, the last first, as far as H divides them, and
+    everything else whole; ``fn`` runs on each rank's shards and its output
+    comes back placed as the heads' arguments are.  So DTensor never
+    reshapes a sharded dim inside the core (an einsum's flatten of sharded
+    batch and heads makes a ``_StridedShard`` on torch 2.13, whose
+    redistribution search takes minutes on a 3-D mesh; torch 2.11 refuses
+    it).  A shared argument's gradient is a partial sum over the head
+    shards.  Without a DTensor argument it is ``fn(*args)``."""
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh, B, H = lead.device_mesh, lead.shape[0], lead.shape[2]
+    batch = [Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements]
+    per_head, n = list(batch), 1
+    for i in reversed(range(mesh.ndim)):
+        if not batch[i].is_shard() and H % (n * mesh.size(i)) == 0:
+            per_head[i], n = Shard(2), n * mesh.size(i)
+    shared_grad = [Partial() if h.is_shard(2) else b for h, b in zip(per_head, batch)]
+
+    def local(i, a):
+        if not isinstance(a, DTensor):
+            return a
+        if i in shared:
+            return a.redistribute(mesh, batch).to_local(grad_placements=shared_grad)
+        return a.redistribute(mesh, per_head).to_local()
+    out = fn(*(local(i, a) for i, a in enumerate(args))).contiguous()
+    shape = (B, out.shape[1], H, *out.shape[3:])
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(out, mesh, per_head, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
 
 
 def pointwise(fn, x):

@@ -465,6 +465,38 @@ def test_reduced_zoo_on_card_matches_cpu(cuda, name):
     assert res["ok"], res["failures"]
 
 
+@pytest.mark.parametrize("op", ["mlstm_scan", "slstm_scan", "slstm_scan_backward"])
+def test_recurrent_operator_on_card_matches_cpu(cuda, op):
+    """xlstm's recurrence operators at reduced xlstm's widths (4 heads of
+    64), 40 steps from a random state: card against CPU norm-wise at 1e-4,
+    every output on the card, and no host synchronisation while the
+    operator runs (``torch.cuda.set_sync_debug_mode("error")``), so no
+    state is copied to the host."""
+    g = torch.Generator().manual_seed(9)
+    B, S, H, hd = 2, 40, 4, 64
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    if op == "mlstm_scan":
+        args = (r(B, S, H, hd), r(B, S, H, hd) / hd ** 0.5, r(B, S, H, hd), r(B, S, H),
+                r(B, S, H), r(B, H, hd, hd), r(B, H, hd), r(B, H))
+    else:
+        args = (r(B, S, 4 * H * hd), r(H, hd, 4 * hd) * 0.5 / hd ** 0.5, r(B, H, hd),
+                r(B, H, hd).abs() + 0.5, r(B, H, hd), r(B, H, hd))
+        if op == "slstm_scan_backward":
+            args += tuple(r(*o.shape) for o in torch.ops.repro_torch.slstm_scan(*args))
+    fn = getattr(torch.ops.repro_torch, op)
+    want = fn(*args)
+    on_card = [a.to(cuda) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for out, ref in zip(got, want):
+        assert out.device.type == "cuda" and out.shape == ref.shape
+        assert float((out.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
 # --------------------------------------------------------------------- #
 # the flash-attention backward and the training path
 # --------------------------------------------------------------------- #

@@ -45,8 +45,11 @@ GRAD_NORMWISE = 1e-5
 ROUNDING = 2.0 ** -24
 ROUNDING_FACTOR = 10.0
 # granite, and the mixers whose gates pass through ``act_sharding.pointwise``
-# (xlstm's mLSTM and sLSTM) or whose blocks run on replicas (jamba's MoE)
-STEP_ARCHS = ("granite-3-2b", "xlstm-125m", "jamba-v0.1-52b")
+# or the recurrence operators (xlstm's mLSTM and sLSTM), whose blocks run on
+# replicas (jamba's MoE) or whose attention cores run per shard
+# (``act_sharding.by_heads``: deepseek's MLA, whisper's cross-attention)
+STEP_ARCHS = ("granite-3-2b", "xlstm-125m", "jamba-v0.1-52b", "deepseek-v3-671b",
+              "whisper-large-v3")
 UPDATE_RTOL = 1e-6
 
 
@@ -152,6 +155,9 @@ def _sharded_step(arch: str, mesh) -> dict:
     start = tame(model.init(0, device="cpu"))
     batch = {k: torch.from_numpy(v).long() for k, v in TokenPipeline(
         vocab=mcfg.vocab, seq_len=32, global_batch=4, seed=0).next_batch().items()}
+    if mcfg.enc_dec:                      # the audio frames beside the decoder tokens
+        batch["prefix_embeds"] = torch.randn((4, 32, mcfg.d_model),
+                                             generator=torch.Generator().manual_seed(2))
     ocfg = O.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
     single = map_tree(torch.clone, start)
     loss1, g1 = value_and_grad(model, single, batch)
