@@ -1,0 +1,9 @@
+"""Puts the checkout's root and ``src/`` on the path, as ``simbench/run.py``
+does, so ``python -m pytest simbench/tests`` runs from the root."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
