@@ -42,16 +42,14 @@ Phases, one JSON line each:
             fluid_scan per phase and no steady_scan (fused into the scan);
 5. batch    ``run_many`` over 8 flow scenarios on the card against the CPU:
             one fluid_scan launch and no steady_scan;
-6. profile  gpt@128 again, untraced and then under ``torch.profiler``: the
-            device's busy share of the wall time and its time by kernel;
-7. analytic ``repro_torch.api.run(..., backend="analytic")`` (host-only, exact)
+6. analytic ``repro_torch.api.run(..., backend="analytic")`` (host-only, exact)
             for gpt@128, moe@128 and moe@1024 at ``scale=1.0``; the same run
             built by hand (simulator + workload driver, with a flow table
             that records every solve) must equal it bit for bit, and every
             recorded solve is replayed on the card through
             ``maxmin_rates_torch(..., impl="kernel")``, held to the exact
             rates at rtol 1e-4, with one ``maxmin`` launch per solve;
-8. packet   the host-only event simulators beside the card's fluid engine:
+7. packet   the host-only event simulators beside the card's fluid engine:
             ``compare(gpt@128 at scale 1/64, backends=("packet", "wormhole",
             "hybrid", "fluid", "analytic"))`` with each backend's events,
             wall, speedups and FCT errors against the ``packet`` oracle
@@ -69,7 +67,7 @@ Phases, one JSON line each:
             ``intra_workers`` 1 and 2), whose FCTs and events must equal the
             serial run's, with the lane-worker pool's start-up time and a
             check that its worker holds no torch;
-9. learned  the learned engine end to end: ``benchmarks/learned_bench.py``'s
+8. learned  the learned engine end to end: ``benchmarks/learned_bench.py``'s
             64-scenario wave family (16 sizes x dctcp/hpcc x 16/32 hosts) on
             ``wormhole`` as ground truth, swept by a durable campaign whose
             ``export_dataset`` must equal ``build_dataset`` over the same
@@ -82,7 +80,7 @@ Phases, one JSON line each:
             host's feature extraction and the card's ``predict`` timed
             apart; and ``compare()`` of all six backends on a held-out
             scenario, with one fluid_scan per phase;
-10. campaign the experiment layer on the card: a durable campaign sweeps
+9. campaign the experiment layer on the card: a durable campaign sweeps
             gpt@128 at ``scale=1.0`` in 4 size variants on ``fluid`` (as many
             fluid_scan launches as ``run_many`` over them), is closed and
             reopened, and the same sweep is 4 cache hits with no launch and
@@ -100,7 +98,7 @@ Phases, one JSON line each:
             phase's campaign on the card, its params naming the card, and the
             learned engine served from that file); the phase's wall under
             ``CAMPAIGN_PHASE_WALL_S``; every directory a temporary one;
-11. serve   ``repro_torch.launch.serve.generate`` on granite-3-2b at full
+10. serve   ``repro_torch.launch.serve.generate`` on granite-3-2b at full
             width and depth in bf16 (seeded weights): batch 4, a 2048-token
             prompt through ``Model.prefill``, then 32 greedy tokens through
             ``Model.decode_step``; exactly 40 ``flash_attention`` launches in
@@ -110,7 +108,7 @@ Phases, one JSON line each:
             float32 (rtol 2e-2, on weights whose attention is not chaotic:
             see ``phase_serve``), and the card against the CPU at full width
             with 2 layers in float32 (prefill logits and cache);
-12. zoo     the rest of the architecture zoo at full width in bf16 (seeded
+11. zoo     the rest of the architecture zoo at full width in bf16 (seeded
             weights; depth cut only where the weights would not fit, and
             printed): gemma3-27b (62 layers, a 1024-token local window
             under a 2048-token prompt), mixtral-8x22b (2 layers, MoE, window
@@ -127,7 +125,7 @@ Phases, one JSON line each:
             power limit; then all ten registered architectures' reduced
             configs in float32, card against CPU (norm-wise 1e-4; MoE at
             the reference's continuation bar);
-13. train   the training path on the card: K4's backward
+12. train   the training path on the card: K4's backward
             (``flash_attention_backward``) against its plain version at
             granite-3-2b's training shape in float32 and bf16, gemma3's
             local window, whisper's bidirectional encoder and a strided
@@ -156,7 +154,7 @@ Phases, one JSON line each:
             1e-4) and its checkpoint restoring on the CPU bit-equal; and
             ``python -m repro_torch.launch.train`` on the card with its loss
             falling;
-14. parallel the multi-device layer: granite-3-2b's train step at full
+13. parallel the multi-device layer: granite-3-2b's train step at full
             width and depth on a 1-rank NCCL group, its parameters and AdamW
             state DTensors on a (1, 1) ``("data", "model")`` mesh by the
             sharding rules, the activation constraint installed: 3 steps
@@ -780,36 +778,6 @@ def phase_e2e(torch, scenarios, launches: dict) -> dict:
         emit("e2e", **row)
         iterations[name] = res.iteration_time
     return iterations
-
-
-def phase_profile(torch, name: str, scn) -> None:
-    """One traced run: the device's busy share and its time by kernel.  The
-    trace's own cost lengthens the traced wall, so the busy share is also
-    given against the untraced wall of a second run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.api import run
-    run(scn, backend="fluid")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(scn, backend="fluid")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(scn, backend="fluid")
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", scenario=name, wall_s=wall, traced_wall_s=traced_wall,
-         device_busy_s=busy if busy > 0 else "not measured",
-         busy_share_of_wall=busy / wall if busy > 0 else "not measured",
-         kernels=[dict(name=e.key[:60], count=e.count,
-                       device_s=e.self_device_time_total / 1e6) for e in top])
 
 
 def flow_scenarios(n: int, rng):
@@ -2389,7 +2357,6 @@ def run_phases(torch, smi: str, device: dict) -> int:
                 "flash_attention_zoo": 0, "flash_attention_train": 0, "flash_attention_backward": 0}
     fluid_iters = phase_e2e(torch, scenarios, launches)
     phase_batch(torch, rng)
-    phase_profile(torch, "gpt@128", scenarios["gpt@128"])
     analytic_iters = phase_analytic(torch, scenarios, recorded, launches)
     phase_packet(torch, launches, fluid_iters, analytic_iters)
     with tempfile.TemporaryDirectory() as td:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+from repro_torch import obs
 from repro_torch.api.analytic import AnalyticSim
 from repro_torch.api.results import RunResult
 from repro_torch.api.scenario import Scenario
@@ -113,11 +114,11 @@ class FluidEngine(Engine):
             device=None, **opts) -> RunResult:
         from repro_torch.device import device_name, resolve_device
         from repro_torch.net.fluid import FluidScenario, fluid_converged_rates
+        t0 = time.perf_counter()
         dev = resolve_device(device)
         chaos_mod.check_backend(chaos_mod.plan_for(scenario), self.name)
         topo = scenario.build_topology()
         phases = scenario.build_phases()
-        t0 = time.perf_counter()
         fcts: dict[int, float] = {}
         flow_bytes: dict[int, float] = {}
         tags: dict[int, str] = {}
@@ -131,8 +132,11 @@ class FluidEngine(Engine):
             if ph.flows:
                 fs = FluidScenario.from_flows(
                     topo, [(f.fid, f.src, f.dst, f.size) for f in ph.flows])
-                rates = fluid_converged_rates(fs, steps=steps, dt=dt,
-                                              device=dev)["rates"].tolist()
+                rates = fluid_converged_rates(fs, steps=steps, dt=dt, device=dev)["rates"]
+                with obs.span("fluid.readback"):
+                    if rates.is_cuda:
+                        obs.count("fluid.syncs")
+                    rates = rates.tolist()
                 total_steps += steps
                 for f, rate in zip(ph.flows, rates):
                     fct = f.size / max(rate, 1e3)
@@ -204,7 +208,7 @@ def _drive(scenario: Scenario, sim) -> WorkloadDriver | None:
     return None
 
 
-def _collect(backend: str, scenario: Scenario, sim, driver, wall: float,
+def _collect(backend: str, scenario: Scenario, sim, driver, t0: float,
              kernel_report: dict | None = None,
              record_rtt=()) -> RunResult:
     if driver is not None:
@@ -225,7 +229,7 @@ def _collect(backend: str, scenario: Scenario, sim, driver, wall: float,
         flow_bytes={fid: r.bytes for fid, r in sim.results.items()},
         tags={fid: r.tag for fid, r in sim.results.items()},
         iteration_time=iteration, events_processed=sim.events_processed,
-        wall_time=wall, kernel_report=kernel_report, extras=extras)
+        wall_time=time.perf_counter() - t0, kernel_report=kernel_report, extras=extras)
 
 
 @register_engine("packet")
@@ -250,6 +254,7 @@ class PacketEngine(Engine):
     def run(self, scenario: Scenario, record_rtt=(), until: float = float("inf"),
             parallel: str | None = None, intra_workers: int = 1,
             validate: bool = False, **opts) -> RunResult:
+        t0 = time.perf_counter()
         plan = chaos_mod.plan_for(scenario)
         chaos_mod.check_backend(plan, self.name, intra_workers=intra_workers)
         topo = scenario.build_topology()
@@ -272,14 +277,12 @@ class PacketEngine(Engine):
         driver = _drive(scenario, sim)
         if plan is not None and plan.has_link_events:
             plan.install(sim)
-        t0 = time.perf_counter()
         try:
             sim.run(until=until)
         finally:
             if parallel == "partitions":
                 sim.close()
-        wall = time.perf_counter() - t0
-        result = _collect(self.name, scenario, sim, driver, wall,
+        result = _collect(self.name, scenario, sim, driver, t0,
                           kernel_report=report_fn() if report_fn else None,
                           record_rtt=record_rtt)
         if parallel == "partitions":
@@ -353,6 +356,7 @@ class HybridEngine(Engine):
             record_rtt=(), until: float = float("inf"),
             intra_workers: int = 1, validate: bool = False,
             **opts) -> RunResult:
+        t0 = time.perf_counter()
         if isinstance(config, HybridConfig):
             cfg = dataclasses.replace(config)    # never mutate the caller's
         else:
@@ -379,13 +383,11 @@ class HybridEngine(Engine):
         driver = _drive(scenario, sim)
         if plan is not None and plan.has_link_events:
             plan.install(sim)
-        t0 = time.perf_counter()
         try:
             sim.run(until=until)
         finally:
             sim.close()
-        wall = time.perf_counter() - t0
-        result = _collect(self.name, scenario, sim, driver, wall,
+        result = _collect(self.name, scenario, sim, driver, t0,
                           kernel_report=report_fn() if report_fn else None,
                           record_rtt=record_rtt)
         result.extras["granularity"] = sim.granularity_report()
@@ -408,13 +410,12 @@ class AnalyticEngine(Engine):
 
     def run(self, scenario: Scenario, until: float = float("inf"),
             **opts) -> RunResult:
+        t0 = time.perf_counter()
         chaos_mod.check_backend(chaos_mod.plan_for(scenario), self.name)
         sim = AnalyticSim(scenario.build_topology())
         driver = _drive(scenario, sim)
-        t0 = time.perf_counter()
         sim.run(until=until)
-        wall = time.perf_counter() - t0
-        return _collect(self.name, scenario, sim, driver, wall)
+        return _collect(self.name, scenario, sim, driver, t0)
 
 
 # the learned engine lives in its own package (it has a training half the

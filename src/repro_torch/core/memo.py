@@ -18,7 +18,8 @@ dynamics but are invisible to the FCG key, so replaying a DB across regimes
 would silently corrupt results — ``bind_fingerprint`` (called when a kernel
 attaches) and ``merge`` both refuse mismatches instead.
 
-Copy of ``repro.core.memo``, which the port may not import.
+Copy of ``repro.core.memo``, which the port may not import, with one
+span added: ``SimDB.lookup`` is ``memo.lookup`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import dataclasses
 import json
 import os
 
+from repro_torch import obs
 from repro_torch.core.fcg import FCG, isomorphism
 
 STEADY = "steady"
@@ -146,28 +148,29 @@ class SimDB:
         ``atol`` is the completion-match tolerance in bytes; pass ~2 MTUs of
         the running simulation (the kernel does) so the guard scales with
         the packet size instead of assuming 1500B frames."""
-        if atol is None:
-            atol = _DEFAULT_COMPLETION_ATOL
-        self.lookups += 1
-        for entry in self._buckets.get(fcg.key, ()):  # WL structural filter
-            m = isomorphism(entry.fcg, fcg)
-            if m is None:
-                continue
-            if any(entry.sizes[u] > remaining[v] + 1e-6 for u, v in m.items()):
-                continue
-            if entry.end_reason == COMPLETION:
-                # the stored transient *ends with* these vertices completing:
-                # replaying it is only semantically equivalent if the mapped
-                # flows run out of bytes at the same point (within ~2 packets,
-                # and never more than a few % of the flow)
-                if any(abs(entry.sizes[u] - remaining[m[u]])
-                       > min(atol, max(_COMPLETION_RTOL * remaining[m[u]], 1.0))
-                       for u in entry.completed):
+        with obs.span("memo.lookup"):
+            if atol is None:
+                atol = _DEFAULT_COMPLETION_ATOL
+            self.lookups += 1
+            for entry in self._buckets.get(fcg.key, ()):  # WL structural filter
+                m = isomorphism(entry.fcg, fcg)
+                if m is None:
                     continue
-            entry.hits += 1
-            self.hits += 1
-            return MemoHit(entry=entry, mapping=m)
-        return None
+                if any(entry.sizes[u] > remaining[v] + 1e-6 for u, v in m.items()):
+                    continue
+                if entry.end_reason == COMPLETION:
+                    # the stored transient *ends with* these vertices completing:
+                    # replaying it is only semantically equivalent if the mapped
+                    # flows run out of bytes at the same point (within ~2 packets,
+                    # and never more than a few % of the flow)
+                    if any(abs(entry.sizes[u] - remaining[m[u]])
+                           > min(atol, max(_COMPLETION_RTOL * remaining[m[u]], 1.0))
+                           for u in entry.completed):
+                        continue
+                entry.hits += 1
+                self.hits += 1
+                return MemoHit(entry=entry, mapping=m)
+            return None
 
     # ------------------------------------------------------------------ #
     # regime binding

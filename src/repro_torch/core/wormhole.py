@@ -12,13 +12,15 @@ Interrupts (§5.3): ① flow entry (real-time ⇒ skip-back: lazy materializatio
 at the interrupt's own timestamp), ② flow completion (scheduled as the park
 horizon = earliest virtual completion), ③ reroute (exposed as remove+add).
 
-Copy of ``repro.core.wormhole``, which the port may not import.
+Copy of ``repro.core.wormhole``, which the port may not import, with the
+call-outs as ``wormhole.*`` spans (``repro_torch.obs``).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
 
+from repro_torch import obs
 from repro_torch.core import theory
 from repro_torch.core.fcg import FCG, build_fcg
 from repro_torch.core.memo import COMPLETION as R_COMPLETION
@@ -121,7 +123,8 @@ class WormholeKernel(SimKernel):
         FCG is the whole collective's conflict graph rather than a chain of
         partial ones."""
         now = self.sim.now
-        self._with_drain(lambda: self._admit(flows, now), now)
+        with obs.span("wormhole.admit"):
+            self._with_drain(lambda: self._admit(flows, now), now)
 
     def _admit(self, flows: list[FlowRT], now: float) -> None:
         all_ports: set[int] = set()
@@ -175,7 +178,8 @@ class WormholeKernel(SimKernel):
     def on_flow_finish(self, flow: FlowRT, now: float) -> None:
         self._finish_queue.append(flow.fid)
         if not self._draining:
-            self._with_drain(lambda: None, now)
+            with obs.span("wormhole.finish"):
+                self._with_drain(lambda: None, now)
 
     def _with_drain(self, fn, now: float) -> None:
         if self._draining:
@@ -318,29 +322,30 @@ class WormholeKernel(SimKernel):
     # steady-state detection (Fig 6 step ④⑤) — runs on monitor samples
     # ------------------------------------------------------------------ #
     def on_sample(self, now: float) -> None:
-        sim = self.sim
-        cfg = self.cfg
-        for fid, f in sim.flows.items():
-            if not f.started or f.done or f.parked:
-                continue
-            hist = self.metric_hist.get(fid)
-            if hist is None:
-                continue
-            if cfg.metric == "rate":
-                if f.rate_hist:
-                    hist.append(f.rate_hist[-1])
-            elif cfg.metric == "inflight":
-                hist.append(f.inflight)
-            elif cfg.metric == "qlen":
-                # _link_bw is the sim's plain-float list cache of
-                # topo.link_bw — same IEEE doubles, no ndarray scalar boxing
-                hist.append(max((max(0.0, (sim.busy_until[p] - now)) * sim._link_bw[p]
-                                 for p in f.path), default=0.0))
-            else:
-                raise ValueError(f"unknown metric {cfg.metric!r}")
-        if not cfg.enable_steady:
-            return
-        self._with_drain(lambda: self._detect(now), now)
+        with obs.span("wormhole.sample"):
+            sim = self.sim
+            cfg = self.cfg
+            for fid, f in sim.flows.items():
+                if not f.started or f.done or f.parked:
+                    continue
+                hist = self.metric_hist.get(fid)
+                if hist is None:
+                    continue
+                if cfg.metric == "rate":
+                    if f.rate_hist:
+                        hist.append(f.rate_hist[-1])
+                elif cfg.metric == "inflight":
+                    hist.append(f.inflight)
+                elif cfg.metric == "qlen":
+                    # _link_bw is the sim's plain-float list cache of
+                    # topo.link_bw — same IEEE doubles, no ndarray scalar boxing
+                    hist.append(max((max(0.0, (sim.busy_until[p] - now)) * sim._link_bw[p]
+                                     for p in f.path), default=0.0))
+                else:
+                    raise ValueError(f"unknown metric {cfg.metric!r}")
+            if not cfg.enable_steady:
+                return
+            self._with_drain(lambda: self._detect(now), now)
 
     def _detect(self, now: float) -> None:
         cfg = self.cfg
@@ -436,7 +441,8 @@ class WormholeKernel(SimKernel):
         part = self.parts.get(pid)
         if part is None or part.gen != gen or part.state == UNSTEADY:
             return
-        self._with_drain(lambda: self._unpark(part, now), now)
+        with obs.span("wormhole.unpark"):
+            self._with_drain(lambda: self._unpark(part, now), now)
 
     def _unpark(self, part: Part, now: float) -> None:
         sim = self.sim

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cca_step import fluid_scan
 from repro_torch.net.topology import Topology
@@ -46,26 +47,32 @@ class FluidScenario:
     def from_flows(cls, topo: Topology, flows: list[tuple[int, int, int, float]],
                    mtu: float = 1000.0, ecn_k: float = 64_000.0) -> FluidScenario:
         """flows: (fid, src, dst, size)."""
-        paths = [topo.route(s, d, fid) for fid, s, d, _ in flows]
-        links = sorted({l for p in paths for l in p})
-        lix = {l: i for i, l in enumerate(links)}
-        M = np.zeros((len(flows), len(links)), np.float32)
-        for i, p in enumerate(paths):
-            for l in p:
-                M[i, lix[l]] = 1.0
-        bw = topo.link_bw[links].astype(np.float64)
-        line = np.array([topo.link_bw[p].min() for p in paths])
-        prop = np.array([topo.link_delay[p].sum() for p in paths])
-        rtt = 2 * prop + (np.array([len(p) for p in paths]) + 1) * mtu / line
-        return cls(incidence=M, line_rate=line, base_rtt=rtt,
-                   size=np.array([f[3] for f in flows], np.float64),
-                   link_bw=bw, ecn_k=ecn_k, mss=mtu)
+        with obs.span("fluid.route"):
+            paths = [topo.route(s, d, fid) for fid, s, d, _ in flows]
+        with obs.span("fluid.incidence"):
+            links = sorted({l for p in paths for l in p})
+            lix = {l: i for i, l in enumerate(links)}
+            M = np.zeros((len(flows), len(links)), np.float32)
+            for i, p in enumerate(paths):
+                for l in p:
+                    M[i, lix[l]] = 1.0
+            bw = topo.link_bw[links].astype(np.float64)
+            line = np.array([topo.link_bw[p].min() for p in paths])
+            prop = np.array([topo.link_delay[p].sum() for p in paths])
+            rtt = 2 * prop + (np.array([len(p) for p in paths]) + 1) * mtu / line
+            return cls(incidence=M, line_rate=line, base_rtt=rtt,
+                       size=np.array([f[3] for f in flows], np.float64),
+                       link_bw=bw, ecn_k=ecn_k, mss=mtu)
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
     """float64 numpy in, float32 tensor on ``device`` out (the cast the
-    reference's ``jnp.asarray`` makes with x64 off)."""
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    reference's ``jnp.asarray`` makes with x64 off).  A copy to the card
+    from pageable memory waits on the stream: one of ``fluid.syncs``."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    if t.is_cuda:
+        obs.count("fluid.syncs")
+    return t
 
 
 def fluid_run(M, line, rtt0, size, bw, dt: float, steps: int,
@@ -100,6 +107,8 @@ def _t_conv(hist: torch.Tensor, w: int, dt: float, steps: int) -> float:
     m = win.mean(-1)
     fl = torch.where(m > 0, (win.amax(-1) - win.amin(-1)) / m.clamp_min(1e-9), torch.inf)
     ok = (fl < 0.05).all(-1).cpu().numpy()
+    if hist.is_cuda:
+        obs.count("fluid.syncs")
     return float(w + int(ok.argmax())) * dt if ok.any() else steps * dt
 
 
@@ -120,12 +129,19 @@ def fluid_converged_rates(scn: FluidScenario, dt: float | None = None,
     # atol=0 and positive rates (R2 >= mss/rtt for unbounded flows): the
     # detector's 1e-30 clamp and zero-row rule never differ from the
     # reference's numpy (1e-9 clamp, inf for a zero row) here
-    out = fluid_run(_f32(scn.incidence, dev), _f32(scn.line_rate, dev),
-                    _f32(scn.base_rtt, dev), _f32(unbounded, dev),
-                    _f32(scn.link_bw, dev), dt, steps, ecn_k=scn.ecn_k, mss=scn.mss, window=w)
+    with obs.span("fluid.upload"):
+        args = [_f32(x, dev) for x in (scn.incidence, scn.line_rate, scn.base_rtt,
+                                       unbounded, scn.link_bw)]
+    with obs.span("fluid.scan"):
+        out = fluid_run(*args, dt, steps, ecn_k=scn.ecn_k, mss=scn.mss, window=w)
+        if out["rate_hist"].is_cuda:                   # the scan's 0/1 check of M waits
+            obs.count("fluid.syncs")
+    del args                                          # the inputs go before _t_conv's windows
     hist = out["rate_hist"]                            # [steps, F]
+    with obs.span("fluid.t_conv"):
+        t_conv = _t_conv(hist, w, dt, steps)
     return {"rates": out["win_mean"], "fluct": out["win_fluct"],
-            "t_conv": _t_conv(hist, w, dt, steps), "hist": hist}
+            "t_conv": t_conv, "hist": hist}
 
 
 def sweep(scenarios: list[FluidScenario], dt: float, steps: int,

@@ -23,9 +23,10 @@ Mechanism hooks mirroring the paper's implementation (§6):
     function of time, so an earlier-than-expected interrupt simply
     materializes state at its own timestamp — exact by construction.
 
-Copy of ``repro.net.packet_sim``, which the port may not import.  The
-reference's partition-sharded loop (``repro.net.sharded_sim``), for which
-the handlers below keep their authoritative copies, is not ported yet.
+Copy of ``repro.net.packet_sim``, which the port may not import, with
+``run`` the ``packet.loop`` span (``repro_torch.obs``).  The handlers
+below keep their authoritative copies for the partition-sharded loop
+(``repro_torch.net.sharded_sim``).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from collections.abc import Callable
 
+from repro_torch import obs
 from repro_torch.hotpath import hot_path
 from repro_torch.net.cca import CCA, MTU, INTInfo, make_cca
 from repro_torch.net.flows import FlowResult, FlowSpec
@@ -334,8 +336,22 @@ class PacketSim:
     # ------------------------------------------------------------------ #
     # main loop
     # ------------------------------------------------------------------ #
-    @hot_path
     def run(self, until: float = float("inf")) -> None:
+        """Run the events up to ``until``: the inlined loop below, or
+        :meth:`_run_generic` for a subclass that overrides scheduling or
+        any packet handler; the whole of it is the ``packet.loop`` span."""
+        cls = type(self)
+        with obs.span("packet.loop"):
+            if (cls.schedule is not PacketSim.schedule
+                    or cls._do_arrive is not PacketSim._do_arrive
+                    or cls._do_send is not PacketSim._do_send
+                    or cls._do_ack is not PacketSim._do_ack):
+                self._run_generic(until)
+            else:
+                self._run_inlined(until)
+
+    @hot_path
+    def _run_inlined(self, until: float = float("inf")) -> None:
         """Serial event loop, specialized for the hot path.
 
         The packet kinds (ARRIVE — the per-hop walk, ~2/3 of all events —
@@ -356,12 +372,6 @@ class PacketSim:
         short-lived event tuples otherwise trigger a gen-0 collection every
         ~700 allocations, and none of them can form cycles.
         """
-        cls = type(self)
-        if (cls.schedule is not PacketSim.schedule
-                or cls._do_arrive is not PacketSim._do_arrive
-                or cls._do_send is not PacketSim._do_send
-                or cls._do_ack is not PacketSim._do_ack):
-            return self._run_generic(until)
         self.time_limit = until
         heap = self._heap
         heappop = heapq.heappop
