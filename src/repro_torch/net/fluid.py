@@ -21,6 +21,7 @@ batch dimension.  All math is float32, as the reference runs with x64 off.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -50,16 +51,25 @@ class FluidScenario:
         with obs.span("fluid.route"):
             paths = [topo.route(s, d, fid) for fid, s, d, _ in flows]
         with obs.span("fluid.incidence"):
-            links = sorted({l for p in paths for l in p})
-            lix = {l: i for i, l in enumerate(links)}
+            # the paths as one flat array of link ids, flow after flow
+            hops = np.array([len(p) for p in paths], np.int64)
+            if (hops == 0).any():
+                raise ValueError("a flow from a host to itself has no path")
+            flat = np.fromiter(itertools.chain.from_iterable(paths), np.int64, int(hops.sum()))
+            starts = np.cumsum(hops) - hops
+            links, col = np.unique(flat, return_inverse=True)    # ascending link ids
             M = np.zeros((len(flows), len(links)), np.float32)
-            for i, p in enumerate(paths):
-                for l in p:
-                    M[i, lix[l]] = 1.0
+            M[np.repeat(np.arange(len(flows)), hops), col] = 1.0
             bw = topo.link_bw[links].astype(np.float64)
-            line = np.array([topo.link_bw[p].min() for p in paths])
-            prop = np.array([topo.link_delay[p].sum() for p in paths])
-            rtt = 2 * prop + (np.array([len(p) for p in paths]) + 1) * mtu / line
+            line = np.minimum.reduceat(topo.link_bw[flat], starts)
+            # each path's delays summed as one row, in the order numpy sums a
+            # path alone (reduceat would add them in another order)
+            delay = topo.link_delay[flat]
+            prop = np.empty(len(flows))
+            for k in np.unique(hops):
+                rows = np.flatnonzero(hops == k)
+                prop[rows] = delay[starts[rows, None] + np.arange(k)].sum(axis=1)
+            rtt = 2 * prop + (hops + 1) * mtu / line
             return cls(incidence=M, line_rate=line, base_rtt=rtt,
                        size=np.array([f[3] for f in flows], np.float64),
                        link_bw=bw, ecn_k=ecn_k, mss=mtu)

@@ -17,6 +17,9 @@ from collections.abc import Callable
 
 import numpy as np
 
+from repro_torch import obs
+
+
 @dataclasses.dataclass
 class Topology:
     name: str
@@ -36,49 +39,77 @@ class Topology:
         for lid in range(self.n_links):
             adj[int(self.link_src[lid])].append((lid, int(self.link_dst[lid])))
         self.adj = adj
-        self._dist_cache: dict[int, np.ndarray] = {}
+        self._dist: dict[int, list[int]] = {}      # BFS root -> hop distances
+        # per destination: (hop distance of every node, -1 where unreached;
+        # each node's equal-cost next hops, filled as routes walk through it)
+        self._toward: dict[int, tuple[list[int], list[list[tuple[int, int]] | None]]] = {}
 
     # ------------------------------------------------------------------ #
     # Routing
     # ------------------------------------------------------------------ #
-    def _dist_to(self, dst: int) -> np.ndarray:
-        """BFS hop distance from every node to ``dst`` (reverse graph ==
-        forward graph here because every cable is bidirectional)."""
-        cached = self._dist_cache.get(dst)
-        if cached is not None:
-            return cached
-        dist = np.full(self.n_nodes, np.iinfo(np.int32).max, dtype=np.int32)
-        dist[dst] = 0
-        frontier = [dst]
+    def _bfs(self, root: int) -> list[int]:
+        """BFS hop distance from every node to ``root``, -1 where unreached
+        (reverse graph == forward graph here because every cable is
+        bidirectional), once per root."""
+        dist = self._dist.get(root)
+        if dist is not None:
+            return dist
+        dist = self._dist[root] = [-1] * self.n_nodes
+        dist[root] = 0
+        frontier = [root]
+        hops = 0
         # reverse adjacency equals adjacency for our symmetric builders
         while frontier:
+            hops += 1
             nxt = []
             for u in frontier:
-                du = dist[u]
                 for _, v in self.adj[u]:
-                    if dist[v] > du + 1:
-                        dist[v] = du + 1
+                    if dist[v] < 0:
+                        dist[v] = hops
                         nxt.append(v)
             frontier = nxt
-        self._dist_cache[dst] = dist
         return dist
+
+    def _table_to(self, dst: int) -> tuple[list[int], list[list[tuple[int, int]] | None]]:
+        """The hop distances to ``dst``, once per destination, and the table
+        of next hops toward it, empty until ``route`` fills it."""
+        table = self._toward.get(dst)
+        if table is not None:
+            return table
+        obs.count("topology.dist_builds")
+        ends = {v for _, v in self.adj[dst]}
+        if len(ends) == 1:
+            # a node on one neighbour (a host on its cable): every path to it
+            # ends through that neighbour, so the hosts of a switch share its BFS
+            dist = [d + 1 if d >= 0 else -1 for d in self._bfs(ends.pop())]
+            dist[dst] = 0
+        else:
+            dist = self._bfs(dst)
+        table = self._toward[dst] = (dist, [None] * self.n_nodes)
+        return table
 
     def route(self, src: int, dst: int, flow_id: int) -> list[int]:
         """Deterministic ECMP: shortest path, ties broken by a hash of
         (flow_id, hop) — the same flow always takes the same path, different
         flows spread over the equal-cost fan-out (standard 5-tuple ECMP
         behavior, which is what makes contention patterns *reproducible*,
-        the property Wormhole's memoization exploits)."""
+        the property Wormhole's memoization exploits).  The candidates at a
+        hop are the node's neighbours one hop closer to ``dst``, in
+        adjacency order."""
         if src == dst:
             return []
-        dist = self._dist_to(dst)
-        if dist[src] >= np.iinfo(np.int32).max:
+        dist, nexts = self._table_to(dst)
+        if dist[src] < 0:
             raise ValueError(f"no path {src}->{dst} in {self.name}")
         path: list[int] = []
         node = src
         step = 0
         while node != dst:
-            cands = [(lid, v) for lid, v in self.adj[node] if dist[v] == dist[node] - 1]
+            cands = nexts[node]
+            if cands is None:
+                closer = dist[node] - 1
+                cands = nexts[node] = [(lid, v) for lid, v in self.adj[node]
+                                       if dist[v] == closer]
             h = (flow_id * 1000003 + node * 10007 + step * 101) % len(cands)
             lid, node = cands[h]
             path.append(lid)

@@ -184,6 +184,59 @@ def test_fluid_scenario_takes_reference_arrays_as_they_are():
         assert port["t_conv"] == ref["t_conv"]
 
 
+@pytest.mark.parametrize("moe", [False, True], ids=["gpt@128", "moe@128"])
+def test_fluid_scenario_arrays_at_128_gpus_equal_the_reference(moe):
+    """Every phase with flows of a 128-GPU job: the port's FluidScenario on
+    the port's topology holds the reference's arrays, dtype and all."""
+    ref_scn = ref_training_scenario(n_gpus=128, moe=moe)
+    ref_topo = ref_scn.build_topology()
+    port_topo = Scenario.from_dict(ref_scn.to_dict()).build_topology()
+    phases = [ph for ph in ref_scn.build_phases() if ph.flows]
+    assert phases
+    for ph in phases:
+        flows = [(f.fid, f.src, f.dst, f.size) for f in ph.flows]
+        ref = fluid_jax.FluidScenario.from_flows(ref_topo, flows)
+        port = fluid.FluidScenario.from_flows(port_topo, flows)
+        for name in ("incidence", "line_rate", "base_rtt", "size", "link_bw"):
+            a, b = getattr(port, name), getattr(ref, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (ph.name, name)
+        assert (port.ecn_k, port.mss) == (ref.ecn_k, ref.mss)
+
+
+def test_fluid_scenario_arrays_equal_the_reference_on_uneven_links():
+    """Bandwidths and delays drawn per link, so a path's rate and delay
+    depend on which links it takes and in which order they are summed."""
+    from repro.net.topology import Topology as RefTopology
+    from repro.net.topology import fat_tree as ref_fat_tree
+    from repro_torch.net.topology import Topology
+    base = ref_fat_tree(4)
+    rng = np.random.default_rng(11)
+    arrays = dict(name="uneven", n_hosts=base.n_hosts, n_nodes=base.n_nodes,
+                  link_src=base.link_src, link_dst=base.link_dst,
+                  link_bw=rng.uniform(1e9, 5e10, base.n_links),
+                  link_delay=rng.uniform(1e-7, 1e-5, base.n_links))
+    ref_topo, port_topo = RefTopology(**arrays), Topology(**arrays)
+    hosts = range(base.n_hosts)
+    flows = [(i, s, d, 1e6 + i) for i, (s, d) in
+             enumerate((s, d) for s in hosts for d in hosts if s != d)]
+    ref = fluid_jax.FluidScenario.from_flows(ref_topo, flows)
+    port = fluid.FluidScenario.from_flows(port_topo, flows)
+    assert {len(port_topo.route(s, d, fid)) for fid, s, d, _ in flows} == {2, 4, 6}
+    for name in ("incidence", "line_rate", "base_rtt", "size", "link_bw"):
+        a, b = getattr(port, name), getattr(ref, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+def test_fluid_scenario_refuses_a_flow_to_itself_as_the_reference():
+    topo, ref_topo = leaf_spine_clos(8, leaf_down=4, n_spines=2), ref_clos(8, leaf_down=4,
+                                                                           n_spines=2)
+    flows = [(0, 0, 5, 4e6), (1, 3, 3, 4e6)]
+    with pytest.raises(ValueError):
+        fluid_jax.FluidScenario.from_flows(ref_topo, flows)
+    with pytest.raises(ValueError):
+        fluid.FluidScenario.from_flows(topo, flows)
+
+
 def test_sweep_converged_rates_match_reference():
     topo = ref_clos(16, leaf_down=4, n_spines=2)
     flow_sets = [CLOS_FLOWS, [(0, 0, 12, 1e6), (1, 1, 12, 1e6), (2, 2, 13, 1e6)],

@@ -189,7 +189,11 @@ def test_wormhole_records_the_loop_callouts_and_lookups(profiled):
     assert lookups and set(lookups) <= {"wormhole.admit", "wormhole.finish",
                                         "wormhole.unpark"}
     assert sum(r["calls"] for r in lookups.values()) == res.kernel_report["run_db_lookups"]
-    assert {n for n, _ in table} == {"packet.loop", "memo.lookup", *callouts}
+    dsts = {f.dst for f in _quickstart().flows}
+    assert sum(row["count"] for (n, _), row in table.items()
+               if n == "topology.dist_builds") == len(dsts)
+    assert {n for n, _ in table} == {"packet.loop", "memo.lookup", "topology.dist_builds",
+                                     *callouts}
     _assert_nested(table, events)
 
 
@@ -197,10 +201,25 @@ def test_fluid_records_one_route_a_phase_and_no_sync_on_the_cpu(profiled):
     scn = _gpt32()
     phases = sum(1 for ph in scn.build_phases() if ph.flows)
     _, table, events = profiled(lambda: run(scn, backend="fluid", device="cpu"))
-    assert set(table) == {(n, None) for n in FLUID_SPANS}
+    assert set(table) == {(n, None) for n in FLUID_SPANS} | {
+        ("topology.dist_builds", "fluid.route")}
     assert all(table[(n, None)]["calls"] == phases for n in FLUID_SPANS)
     assert not any(n == "fluid.syncs" for n, _ in table)
     _assert_nested(table, events)
+
+
+def test_fluid_computes_each_destinations_distances_once_a_run(profiled):
+    """A run builds its topology afresh and routes each destination's flows
+    from one table: one BFS a destination, whatever the phases repeat."""
+    scn = _gpt32()
+    dsts = {f.dst for ph in scn.build_phases() for f in ph.flows}
+    flows = sum(len(ph.flows) for ph in scn.build_phases())
+    assert flows > len(dsts) > 1
+    _, table, _ = profiled(lambda: run(scn, backend="fluid", device="cpu"))
+    assert table[("topology.dist_builds", "fluid.route")] == {"count": len(dsts)}
+    obs.reset()
+    run(scn, backend="fluid", device="cpu")
+    assert obs.table() == {}
 
 
 @pytest.mark.parametrize("backend", ["wormhole", "fluid"])

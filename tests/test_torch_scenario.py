@@ -25,7 +25,9 @@ MICE = {"kind": "mice", "seed": 7, "rate": 2000.0, "size": 4e4,
 TOPOLOGIES = [("fat_tree", {"k": 4}),
               ("roft", {"n_servers": 4, "gpus_per_server": 8, "leaf_radix": 2,
                         "n_spines": 4}),
-              ("clos", {"n_hosts": 16, "leaf_down": 4, "n_spines": 2})]
+              ("clos", {"n_hosts": 16, "leaf_down": 4, "n_spines": 2}),
+              ("roft", {"n_servers": 16, "gpus_per_server": 8, "leaf_radix": 32,
+                        "n_spines": 8})]
 
 
 def _port(ref_scn) -> Scenario:
@@ -44,6 +46,52 @@ def test_topology_and_routes_match_reference(kind, params):
     hosts = range(ref.n_hosts)
     for fid, (s, d) in enumerate((s, d) for s in hosts for d in hosts):
         assert port.route(s, d, fid) == ref.route(s, d, fid), (s, d, fid)
+
+
+@pytest.mark.parametrize("kind,params", TOPOLOGIES)
+def test_routes_to_switches_match_reference(kind, params):
+    """Toward a node of several neighbours (every switch) the port runs a
+    BFS of its own; toward a host it reuses its switch's."""
+    ref = ref_topology.TOPOLOGY_BUILDERS[kind](**params)
+    port = topology.TOPOLOGY_BUILDERS[kind](**params)
+    nodes = range(ref.n_nodes)
+    pairs = [(s, d) for d in range(ref.n_hosts, ref.n_nodes) for s in nodes]
+    for fid, (s, d) in enumerate(pairs):
+        assert port.route(s, d, fid) == ref.route(s, d, fid), (s, d, fid)
+
+
+@pytest.mark.parametrize("src,dst", [(3, 0), (0, 3), (3, 1), (0, 2)])
+def test_route_without_a_path_raises_as_the_reference(src, dst):
+    """Two hosts on a switch and a fourth node on no cable: the routes
+    that reach it, or leave it, raise in both packages."""
+    arrays = dict(name="islet", n_hosts=2, n_nodes=4,
+                  link_src=np.array([0, 2, 1, 2], np.int32),
+                  link_dst=np.array([2, 0, 2, 1], np.int32),
+                  link_bw=np.full(4, 1e10), link_delay=np.full(4, 1e-6))
+    ref, port = ref_topology.Topology(**arrays), topology.Topology(**arrays)
+    if 3 in (src, dst):
+        for topo in (ref, port):
+            with pytest.raises(ValueError, match="no path"):
+                topo.route(src, dst, 5)
+    else:
+        assert port.route(src, dst, 5) == ref.route(src, dst, 5)
+
+
+@pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1])
+@pytest.mark.parametrize("kind,params", TOPOLOGIES)
+def test_routes_repeat_on_one_topology_and_on_a_fresh_one(kind, params, fid0):
+    """A route taken again on the same topology, from its cached tables, is
+    the first one, and a fresh topology (empty tables) takes it too."""
+    build = topology.TOPOLOGY_BUILDERS[kind]
+    topo = build(**params)
+    hosts = range(topo.n_hosts)
+    pairs = [(s, d, fid0 + i) for i, (s, d) in
+             enumerate((s, d) for s in hosts for d in hosts if s != d)]
+    first = [topo.route(s, d, fid) for s, d, fid in pairs]
+    assert all(first)
+    assert [topo.route(s, d, fid) for s, d, fid in pairs] == first
+    fresh = build(**params)
+    assert [fresh.route(s, d, fid) for s, d, fid in reversed(pairs)] == first[::-1]
 
 
 SCENARIOS = {
