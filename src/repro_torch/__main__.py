@@ -15,10 +15,11 @@
     PYTHONPATH=src python -m repro_torch lint src tests --format github
 
 Scenarios are either a path to a ``Scenario`` JSON file (``to_json``) or a
-training-preset shorthand ``gpt@N`` / ``moe@N`` (modified by ``--cca`` /
-``--scale``).  ``-c/--campaign DIR`` makes the session durable: completed
-runs commit to the campaign store as they finish, a re-invoked command
-skips them (cache hits), and the campaign's SimDB keeps wormhole runs warm
+training-preset shorthand ``gpt@N`` / ``moe@N`` or a public model's
+``minimax-text-01@N`` (modified by ``--cca`` / ``--scale``).
+``-c/--campaign DIR`` makes the session durable: completed runs commit to
+the campaign store as they finish, a re-invoked command skips them (cache
+hits), and the campaign's SimDB keeps wormhole runs warm
 across invocations.  ``-c`` also accepts a store-server URL
 (``http://host:port``, see ``serve``) and ``--store URL`` attaches a
 durable directory campaign to a shared server.  Without ``-c`` an
@@ -44,6 +45,7 @@ from repro_torch.api import Campaign, Scenario, training_scenario
 from repro_torch.api.campaign import RunEvent
 from repro_torch.device import NoCardError
 from repro_torch.net.sharded_sim import shutdown_pools
+from repro_torch.workload import presets
 
 
 def _parse_scale(text: str) -> float:
@@ -63,13 +65,16 @@ def _load_scenario(spec: str, args) -> Scenario:
             raise SystemExit(
                 f"error: scenario file {spec!r} not found") from None
     family, sep, n = spec.partition("@")
-    if sep and family in ("gpt", "moe") and n.isdigit():
-        return training_scenario(n_gpus=int(n), moe=(family == "moe"),
-                                 cca=args.cca,
+    if sep and family in presets.FAMILIES and n.isdigit():
+        try:
+            presets.resolve(family, int(n))
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from None
+        return training_scenario(n_gpus=int(n), family=family, cca=args.cca,
                                  scale=_parse_scale(args.scale))
     raise SystemExit(
-        f"error: scenario {spec!r} is neither a .json file nor a "
-        f"'gpt@N'/'moe@N' preset")
+        f"error: scenario {spec!r} is neither a .json file nor a preset "
+        f"{' / '.join(f'{f}@N' for f in presets.FAMILIES)}")
 
 
 def _parse_opts(pairs: list[str]) -> tuple[dict, dict]:

@@ -19,6 +19,7 @@ import hashlib
 import json
 from typing import Any
 
+from repro_torch import obs
 from repro_torch.net.chaos import ChaosPlan
 from repro_torch.net.flows import FlowSpec
 from repro_torch.net.topology import TOPOLOGY_BUILDERS, Topology
@@ -45,7 +46,7 @@ class TopologySpec:
 @dataclasses.dataclass
 class WorkloadSpec:
     """A Table-1 training program by reference (family + size + knobs)."""
-    family: str = "gpt"                  # gpt | moe
+    family: str = "gpt"                  # gpt | moe | a presets.NAMED model
     n_gpus: int = 64
     cca: str = "hpcc"
     scale: float = 1 / 256               # flow-size scale vs the real workload
@@ -60,11 +61,17 @@ class WorkloadSpec:
                      ) -> list[Phase]:
         spec, par, ep_default = presets.resolve(self.family, self.n_gpus)
         ep = self.ep_over_dp or ep_default
-        return build_training_program(
-            spec, par, cca=self.cca, scale=self.scale, ep_over_dp=ep,
-            num_microbatches=self.num_microbatches, straggler=self.straggler,
-            collective=self.collective, topo_meta=topo_meta,
-            extra_stragglers=extra_stragglers)
+        with obs.span("workload.build"):
+            phases = build_training_program(
+                spec, par, cca=self.cca, scale=self.scale, ep_over_dp=ep,
+                num_microbatches=self.num_microbatches, straggler=self.straggler,
+                collective=self.collective, topo_meta=topo_meta,
+                extra_stragglers=extra_stragglers)
+        if obs.recording():
+            flows = [f for ph in phases for f in ph.flows]
+            obs.count("workload.flows", len(flows))
+            obs.count("workload.a2a_flows", sum(f.tag.startswith("ep.") for f in flows))
+        return phases
 
 
 @dataclasses.dataclass
@@ -235,16 +242,19 @@ class Scenario:
 def training_scenario(n_gpus: int = 64, moe: bool = False, cca: str = "hpcc",
                       scale: float = 1 / 256, name: str | None = None,
                       gpus_per_server: int = 8, bw: float = 12.5e9,
-                      chaos: list[dict] | None = None,
+                      chaos: list[dict] | None = None, family: str | None = None,
                       **workload_kw) -> Scenario:
     """The paper's headline setup: a Table-1 workload on its rail-optimized
-    fat-tree (presets.topology_for), as a declarative scenario."""
+    fat-tree (presets.topology_for), as a declarative scenario.  ``family``
+    names the workload (``presets.FAMILIES``) in place of ``moe``."""
+    if family is not None and moe:
+        raise ValueError("name the workload by family= or by moe=True, not both")
     topo = TopologySpec("roft", {
         "n_servers": max(2, max(n_gpus, 16) // gpus_per_server),
         "gpus_per_server": gpus_per_server,
         "leaf_radix": 32, "n_spines": 8, "bw": bw,
     })
-    wl = WorkloadSpec(family="moe" if moe else "gpt", n_gpus=n_gpus,
+    wl = WorkloadSpec(family=family or ("moe" if moe else "gpt"), n_gpus=n_gpus,
                       cca=cca, scale=scale, **workload_kw)
     if name is None:
         # the auto-name keys benchmark baseline caches: make it a function

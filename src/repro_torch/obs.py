@@ -19,7 +19,8 @@ to the ``count`` of its row.
 
 While no profiler is active, ``span`` returns one shared no-op context
 manager and ``count`` returns at once: the check is one read of
-``torch.autograd.profiler._is_profiler_enabled``.  The module imports no
+``torch.autograd.profiler._is_profiler_enabled``, which ``recording()``
+reads for a caller whose count costs work of its own.  The module imports no
 torch (the packet path's spawn workers load none); with torch not loaded,
 no profiler can be active.
 
@@ -107,6 +108,12 @@ class _Span:
             up.child_ns += whole
             up.rec_ns += whole - dt + self.rec_ns
         return False
+
+
+def recording() -> bool:
+    """Whether spans and counters record now: a profiler is active."""
+    mod = sys.modules.get(_PROFILER)
+    return mod is not None and bool(mod._is_profiler_enabled)
 
 
 def span(name: str):

@@ -15,8 +15,14 @@ For the network, what matters is that all-to-all domains of size ep exist —
 we model EP groups over the DP dimension with ep ≤ dp, and keep the DP ring
 at full size (gradient sync is unchanged by expert placement).
 
+Beside the two families, public models by name (``NAMED``), each at the
+Table-1 MoE row's parallelism for its GPU count: MiniMax-Text-01 (80
+layers, every one an expert layer of 32 experts, top-2) has the width,
+expert count and top-k of the 1024-GPU row's 32×22B.
+
 The PyTorch port keeps its own copy of ``repro.workload.presets``, which the
-port may not import; the tests hold the two to identical outputs.
+port may not import; the tests hold the two to identical outputs for the
+``gpt`` and ``moe`` families.
 """
 from __future__ import annotations
 
@@ -73,13 +79,35 @@ MOE = {
 # network EP domain size for MoE rows (all-to-all over this many DP ranks)
 MOE_EP_DOMAIN = 8
 
+# MiniMax-Text-01 (huggingface.co/MiniMaxAI/MiniMax-Text-01, config.json):
+# hidden 6144, expert width 9216, vocabulary 200 064; 456B total and 45.9B
+# active parameters, as its model card gives them
+MINIMAX_TEXT_01 = TrafficModelSpec(
+    name="minimax-text-01", n_layers=80, d_model=6144, d_ff=9216, vocab=200064,
+    params=456e9, active_params=45.9e9, moe_experts=32, moe_top_k=2, moe_layer_every=1)
+
+# public models by name, at the Table-1 MoE layouts alone
+NAMED = {
+    "minimax-text-01": {n: Workload(f"minimax-text-01@{n}", MINIMAX_TEXT_01, wl.par, n)
+                        for n, wl in MOE.items()},
+}
+FAMILIES = ("gpt", "moe", *NAMED)
+
 
 def resolve(family: str, n_gpus: int) -> tuple[TrafficModelSpec,
                                                ParallelismConfig, int]:
     """(spec, parallelism, default ep_over_dp) for a Table-1 row.  Sizes
     off the table fall back to the 64-GPU spec with TP8-PP2 and DP grown to
     n_gpus/16 (the scaling rule the benchmarks use); MoE keeps at least two
-    DP ranks so the EP all-to-all domains stay non-trivial."""
+    DP ranks so the EP all-to-all domains stay non-trivial.  A named model
+    runs at the Table-1 GPU counts alone."""
+    if family in NAMED:
+        rows = NAMED[family]
+        if n_gpus not in rows:
+            raise ValueError(f"{family} runs on {', '.join(map(str, rows))} GPUs "
+                             f"(the Table-1 MoE layouts); got {n_gpus}")
+        wl = rows[n_gpus]
+        return wl.spec, wl.par, min(MOE_EP_DOMAIN, wl.par.dp)
     if family == "moe":
         if n_gpus in MOE:
             wl = MOE[n_gpus]
@@ -88,7 +116,7 @@ def resolve(family: str, n_gpus: int) -> tuple[TrafficModelSpec,
         return (MOE[64].spec, ParallelismConfig(tp=8, dp=dp, pp=2, ep=1),
                 min(MOE_EP_DOMAIN, dp))
     if family != "gpt":
-        raise ValueError(f"unknown workload family {family!r}; have gpt, moe")
+        raise ValueError(f"unknown workload family {family!r}; have {', '.join(FAMILIES)}")
     if n_gpus in GPT:
         wl = GPT[n_gpus]
         return wl.spec, wl.par, 0

@@ -25,6 +25,7 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 CALLOUTS = ("wormhole.admit", "wormhole.finish", "wormhole.unpark", "wormhole.sample")
 FLUID_SPANS = ("fluid.route", "fluid.incidence", "fluid.upload", "fluid.scan",
                "fluid.t_conv", "fluid.readback")
+WORKLOAD_ROWS = ("workload.build", "workload.flows", "workload.a2a_flows")
 
 
 def _quickstart():
@@ -201,7 +202,7 @@ def test_fluid_records_one_route_a_phase_and_no_sync_on_the_cpu(profiled):
     scn = _gpt32()
     phases = sum(1 for ph in scn.build_phases() if ph.flows)
     _, table, events = profiled(lambda: run(scn, backend="fluid", device="cpu"))
-    assert set(table) == {(n, None) for n in FLUID_SPANS} | {
+    assert set(table) == {(n, None) for n in FLUID_SPANS + WORKLOAD_ROWS} | {
         ("topology.dist_builds", "fluid.route")}
     assert all(table[(n, None)]["calls"] == phases for n in FLUID_SPANS)
     assert not any(n == "fluid.syncs" for n, _ in table)
