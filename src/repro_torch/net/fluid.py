@@ -21,7 +21,6 @@ batch dimension.  All math is float32, as the reference runs with x64 off.
 from __future__ import annotations
 
 import dataclasses
-import itertools
 
 import numpy as np
 import torch
@@ -49,13 +48,12 @@ class FluidScenario:
                    mtu: float = 1000.0, ecn_k: float = 64_000.0) -> FluidScenario:
         """flows: (fid, src, dst, size)."""
         with obs.span("fluid.route"):
-            paths = [topo.route(s, d, fid) for fid, s, d, _ in flows]
-        with obs.span("fluid.incidence"):
             # the paths as one flat array of link ids, flow after flow
-            hops = np.array([len(p) for p in paths], np.int64)
+            fid, src, dst, size = zip(*flows) if flows else ((),) * 4
+            flat, hops = topo.routes(fid, src, dst)
+        with obs.span("fluid.incidence"):
             if (hops == 0).any():
                 raise ValueError("a flow from a host to itself has no path")
-            flat = np.fromiter(itertools.chain.from_iterable(paths), np.int64, int(hops.sum()))
             starts = np.cumsum(hops) - hops
             links, col = np.unique(flat, return_inverse=True)    # ascending link ids
             M = np.zeros((len(flows), len(links)), np.float32)
@@ -71,7 +69,7 @@ class FluidScenario:
                 prop[rows] = delay[starts[rows, None] + np.arange(k)].sum(axis=1)
             rtt = 2 * prop + (hops + 1) * mtu / line
             return cls(incidence=M, line_rate=line, base_rtt=rtt,
-                       size=np.array([f[3] for f in flows], np.float64),
+                       size=np.array(size, np.float64),
                        link_bw=bw, ecn_k=ecn_k, mss=mtu)
 
 

@@ -13,6 +13,7 @@ port may not import; the tests hold the two to identical outputs.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections.abc import Callable
 
 import numpy as np
@@ -43,6 +44,7 @@ class Topology:
         # per destination: (hop distance of every node, -1 where unreached;
         # each node's equal-cost next hops, filled as routes walk through it)
         self._toward: dict[int, tuple[list[int], list[list[tuple[int, int]] | None]]] = {}
+        self._hops: _NextHops | None = None        # the array path's table, built by routes
 
     # ------------------------------------------------------------------ #
     # Routing
@@ -115,6 +117,133 @@ class Topology:
             path.append(lid)
             step += 1
         return path
+
+    def routes(self, fid, src, dst) -> tuple[np.ndarray, np.ndarray]:
+        """``route`` for a whole set of flows at once: ``flat``, every flow's
+        link ids, flow after flow, and ``hops``, each flow's path length
+        (int64; 0 where ``src == dst``).  All flows advance one hop a round
+        through a next-hop table (``_NextHops``) with ``route``'s hash in
+        int64 arithmetic, so every path is ``route``'s.  Where an id is past
+        what int64 holds of the hash, the flows go through ``route`` one by
+        one."""
+        try:
+            fid = np.asarray(fid, np.int64)
+        except OverflowError:
+            fid = np.asarray(fid, object)
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        if self._hops is None:
+            self._hops = _NextHops(self)
+        # |fid * 1000003 + node * 10007 + step * 101| < 2**63, as steps < n_nodes
+        lim = (2**63 - 1 - self.n_nodes * 10108) // 1000003
+        if fid.dtype != np.int64 or not fid.size or fid.max() > lim or fid.min() < -lim:
+            paths = [self.route(s, d, f) for f, s, d in
+                     zip(fid.tolist(), src.tolist(), dst.tolist())]
+            hops = np.array([len(p) for p in paths], np.int64)
+            return (np.fromiter(itertools.chain.from_iterable(paths), np.int64,
+                                int(hops.sum())), hops)
+        fresh = [d for d in self._hops.add(dst).tolist() if d not in self._toward]
+        if fresh:
+            obs.count("topology.dist_builds", len(fresh))
+        out = self._hops.walk(fid, src, dst, self.name)
+        obs.count("topology.array_routes", len(fid))
+        return out
+
+
+class _NextHops:
+    """A topology's equal-cost next hops as arrays, for ``Topology.routes``.
+
+    A destination on one neighbour ``s`` (a host on its cable) is reached
+    through ``s``, every other destination is its own root: one BFS a
+    root, for the roots of the destinations asked, all at once, kept for
+    the object's life.  A root's row holds, for every node, its out-links
+    one hop closer to the root in ascending link id (``route``'s adjacency
+    order), as CSR: a count and an offset into one array of link ids.
+    Toward a one-cable ``d`` a path is a walk to ``s`` on ``s``'s row, then
+    one of the links into ``d``, which a first section of the table holds
+    by destination.  Like ``_bfs``, it takes every link to have its reverse,
+    as the builders' cables do."""
+
+    def __init__(self, topo: Topology) -> None:
+        n = self.n = topo.n_nodes
+        src = self.link_src = topo.link_src.astype(np.int64)
+        dst = self.link_dst = topo.link_dst.astype(np.int64)
+        pairs = np.unique(src * n + dst)                   # distinct (node, neighbour)
+        one = np.bincount(pairs // n, minlength=n)[pairs // n] == 1
+        self.root = np.arange(n)
+        self.root[pairs[one] // n] = pairs[one] % n
+        self.row = np.full(n, -1)                          # root -> its row
+        self.known = np.zeros(n, bool)                     # destinations asked
+        self.dist = np.empty((0, n), np.int64)             # each row's hop distances
+        self.out = np.argsort(src, kind="stable")          # links by node, then id
+        cnt = np.bincount(dst, minlength=n)
+        self.cnt, self.off = cnt, np.cumsum(cnt) - cnt
+        self.cand = np.argsort(dst, kind="stable")         # the links into each node
+
+    def add(self, dst: np.ndarray) -> np.ndarray:
+        """Build the rows that the destinations ``dst`` need; returns the
+        destinations asked for the first time."""
+        if self.known[dst].all():
+            return dst[:0]
+        fresh = np.unique(dst[~self.known[dst]])
+        self.known[fresh] = True
+        roots = np.unique(self.root[fresh])
+        roots = roots[self.row[roots] < 0]
+        if not roots.size:
+            return fresh
+        n, k = self.n, len(roots)
+        dist = np.full((k, n), -1, np.int64)
+        dist[np.arange(k), roots] = 0
+        front = dist == 0
+        level = 0
+        while front.any():
+            level += 1
+            r, lid = np.nonzero(front[:, self.link_src])
+            hit = np.zeros(k * n, bool)
+            hit[r * n + self.link_dst[lid]] = True
+            front = hit.reshape(k, n) & (dist < 0)
+            dist[front] = level
+        s, d = self.link_src[self.out], self.link_dst[self.out]
+        near = dist[:, s]
+        r, p = np.nonzero((near > 0) & (dist[:, d] == near - 1))
+        cnt = np.bincount(r * n + s[p], minlength=k * n)   # rows in order, nodes in order
+        self.row[roots] = len(self.dist) + np.arange(k)
+        self.dist = np.concatenate([self.dist, dist])
+        self.off = np.concatenate([self.off, len(self.cand) + np.cumsum(cnt) - cnt])
+        self.cnt = np.concatenate([self.cnt, cnt])
+        self.cand = np.concatenate([self.cand, self.out[p]])
+        return fresh
+
+    def walk(self, fid: np.ndarray, src: np.ndarray, dst: np.ndarray,
+             name: str) -> tuple[np.ndarray, np.ndarray]:
+        """Every flow one hop a round, on the rows ``add`` built: toward its
+        root, then from a one-cable destination's root into it, each hop by
+        ``route``'s hash of (flow id, node, step)."""
+        root = self.root[dst]
+        row = self.row[root]
+        up = self.dist[row, src]                           # hops to the root
+        if up.min() < 0:
+            i = int(np.argmax(up < 0))
+            raise ValueError(f"no path {src[i]}->{dst[i]} in {name}")
+        hops = up + (root != dst)
+        hops[src == dst] = 0
+        end = np.cumsum(hops)
+        flat = np.empty(end[-1], np.int64)
+        h, node, last, to, key, pos, left = (fid * 1000003, src, root, dst,
+                                             self.n * (row + 1), end - hops, hops)
+        step = 0
+        while True:
+            go = left > step
+            if not go.all():
+                if not go.any():
+                    return flat, hops
+                h, node, last, to, key, pos, left = (
+                    x[go] for x in (h, node, last, to, key, pos, left))
+            at = np.where(node == last, to, key + node)    # into dst, else the row
+            lid = self.cand[self.off[at] + (h + node * 10007) % self.cnt[at]]
+            flat[pos] = lid
+            node = self.link_dst[lid]
+            h, pos, step = h + 101, pos + 1, step + 1
 
 
 # ---------------------------------------------------------------------- #

@@ -203,6 +203,35 @@ def test_fluid_scenario_arrays_at_128_gpus_equal_the_reference(moe):
         assert (port.ecn_k, port.mss) == (ref.ecn_k, ref.mss)
 
 
+def test_fluid_scenario_arrays_at_1024_gpus_equal_the_reference():
+    """``minimax-text-01@1024``'s first all-to-all phase (its last stage's,
+    no PP beside it), first PP phase and first DP phase, routed as arrays
+    on the port's topology: the reference's arrays, dtype and all, from
+    its topology's flow-by-flow routes."""
+    from repro.net.topology import TOPOLOGY_BUILDERS as REF_BUILDERS
+    from repro_torch.api import training_scenario
+    scn = training_scenario(n_gpus=1024, family="minimax-text-01", scale=1.0)
+    phases = scn.build_phases()
+
+    def first(has, lacks=None):
+        return next(ph for ph in phases
+                    if any(f.tag.startswith(has) for f in ph.flows)
+                    and not any(lacks and f.tag.startswith(lacks) for f in ph.flows))
+    picked = [first("ep.", "pp."), first("pp."), first("dp.")]
+    assert len({ph.name for ph in picked}) == 3
+    ref_topo = REF_BUILDERS[scn.topology.kind](**scn.topology.params)
+    port_topo = scn.build_topology()
+    assert port_topo.n_hosts == 1024
+    for ph in picked:
+        flows = [(f.fid, f.src, f.dst, f.size) for f in ph.flows]
+        ref = fluid_jax.FluidScenario.from_flows(ref_topo, flows)
+        port = fluid.FluidScenario.from_flows(port_topo, flows)
+        for name in ("incidence", "line_rate", "base_rtt", "size", "link_bw"):
+            a, b = getattr(port, name), getattr(ref, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (ph.name, name)
+        assert (port.ecn_k, port.mss) == (ref.ecn_k, ref.mss)
+
+
 def test_fluid_scenario_arrays_equal_the_reference_on_uneven_links():
     """Bandwidths and delays drawn per link, so a path's rate and delay
     depend on which links it takes and in which order they are summed."""

@@ -203,7 +203,7 @@ def test_fluid_records_one_route_a_phase_and_no_sync_on_the_cpu(profiled):
     phases = sum(1 for ph in scn.build_phases() if ph.flows)
     _, table, events = profiled(lambda: run(scn, backend="fluid", device="cpu"))
     assert set(table) == {(n, None) for n in FLUID_SPANS + WORKLOAD_ROWS} | {
-        ("topology.dist_builds", "fluid.route")}
+        ("topology.dist_builds", "fluid.route"), ("topology.array_routes", "fluid.route")}
     assert all(table[(n, None)]["calls"] == phases for n in FLUID_SPANS)
     assert not any(n == "fluid.syncs" for n, _ in table)
     _assert_nested(table, events)
@@ -221,6 +221,32 @@ def test_fluid_computes_each_destinations_distances_once_a_run(profiled):
     obs.reset()
     run(scn, backend="fluid", device="cpu")
     assert obs.table() == {}
+
+
+def test_fluid_routes_every_flow_of_a_run_as_arrays(profiled):
+    """``topology.array_routes`` counts each flow of the phases with flows,
+    once: the fluid engine routes them all through ``Topology.routes``."""
+    scn = _gpt32()
+    flows = sum(len(ph.flows) for ph in scn.build_phases() if ph.flows)
+    _, table, _ = profiled(lambda: run(scn, backend="fluid", device="cpu"))
+    assert table[("topology.array_routes", "fluid.route")] == {"count": flows}
+    assert sum(row.get("count", 0) for (n, _), row in table.items()
+               if n == "topology.array_routes") == flows
+
+
+@pytest.mark.parametrize("fid0,counted", [(0, True), (2**62, False), (2**64, False)])
+def test_array_routes_count_the_array_path_alone(profiled, fid0, counted):
+    """Flows whose ids are past what int64 holds of the hash go through
+    ``route`` one by one, which ``topology.array_routes`` does not count;
+    ``topology.dist_builds`` counts each destination once either way."""
+    topo = TopologySpec("clos", {"n_hosts": 16, "leaf_down": 4, "n_spines": 2}).build()
+    src, dst = list(range(8)), [15 - s for s in range(8)]
+    fid = [fid0 + i for i in range(8)]
+    _, table, _ = profiled(lambda: topo.routes(fid, src, dst))
+    assert table[("topology.dist_builds", None)] == {"count": 8}
+    assert (("topology.array_routes", None) in table) is counted
+    if counted:
+        assert table[("topology.array_routes", None)] == {"count": 8}
 
 
 @pytest.mark.parametrize("backend", ["wormhole", "fluid"])

@@ -60,15 +60,18 @@ def test_routes_to_switches_match_reference(kind, params):
         assert port.route(s, d, fid) == ref.route(s, d, fid), (s, d, fid)
 
 
+# two hosts on a switch, and a fourth node on no cable
+ISLET = dict(name="islet", n_hosts=2, n_nodes=4,
+             link_src=np.array([0, 2, 1, 2], np.int32),
+             link_dst=np.array([2, 0, 2, 1], np.int32),
+             link_bw=np.full(4, 1e10), link_delay=np.full(4, 1e-6))
+
+
 @pytest.mark.parametrize("src,dst", [(3, 0), (0, 3), (3, 1), (0, 2)])
 def test_route_without_a_path_raises_as_the_reference(src, dst):
     """Two hosts on a switch and a fourth node on no cable: the routes
     that reach it, or leave it, raise in both packages."""
-    arrays = dict(name="islet", n_hosts=2, n_nodes=4,
-                  link_src=np.array([0, 2, 1, 2], np.int32),
-                  link_dst=np.array([2, 0, 2, 1], np.int32),
-                  link_bw=np.full(4, 1e10), link_delay=np.full(4, 1e-6))
-    ref, port = ref_topology.Topology(**arrays), topology.Topology(**arrays)
+    ref, port = ref_topology.Topology(**ISLET), topology.Topology(**ISLET)
     if 3 in (src, dst):
         for topo in (ref, port):
             with pytest.raises(ValueError, match="no path"):
@@ -92,6 +95,105 @@ def test_routes_repeat_on_one_topology_and_on_a_fresh_one(kind, params, fid0):
     assert [topo.route(s, d, fid) for s, d, fid in pairs] == first
     fresh = build(**params)
     assert [fresh.route(s, d, fid) for s, d, fid in reversed(pairs)] == first[::-1]
+
+
+# 2**62 is an int64 past the ids whose hash int64 holds (about 9.2e12), and
+# 2**64 + 3 no int64 at all: such flows go through route one by one
+PAST_INT64_HASH = (2**62, 2**64 + 3)
+
+
+def _routes_as_lists(topo, fid, src, dst):
+    flat, hops = topo.routes(fid, src, dst)
+    assert flat.dtype == hops.dtype == np.int64 and len(hops) == len(src)
+    ends = np.cumsum(hops)
+    return [flat[e - k:e].tolist() for e, k in zip(ends, hops)]
+
+
+@pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1, *PAST_INT64_HASH])
+@pytest.mark.parametrize("kind,params", TOPOLOGIES)
+def test_array_routes_equal_route_and_the_reference(kind, params, fid0, monkeypatch):
+    """``Topology.routes`` on every host pair (a host to itself too) and
+    every node toward every switch, at once: each flow's links are
+    ``route``'s, on a fresh topology and in the JAX package."""
+    ref = ref_topology.TOPOLOGY_BUILDERS[kind](**params)
+    port = topology.TOPOLOGY_BUILDERS[kind](**params)
+    hosts, nodes = range(ref.n_hosts), range(ref.n_nodes)
+    pairs = [(s, d) for s in hosts for d in hosts] + \
+        [(s, d) for d in range(ref.n_hosts, ref.n_nodes) for s in nodes]
+    fids = [fid0 + i for i in range(len(pairs))]
+    src, dst = (np.array(x, np.int64) for x in zip(*pairs))
+    if fid0 in PAST_INT64_HASH:
+        def refuse(*a, **k):
+            raise AssertionError("an id past the bound took the array path")
+        monkeypatch.setattr(topology._NextHops, "walk", refuse)
+    got = _routes_as_lists(port, fids if fid0 > 2**63 else np.array(fids, np.int64),
+                           src, dst)
+    fresh = topology.TOPOLOGY_BUILDERS[kind](**params)
+    want = [ref.route(s, d, f) for f, (s, d) in zip(fids, pairs)]
+    assert [fresh.route(s, d, f) for f, (s, d) in zip(fids, pairs)] == want
+    assert got == want
+    assert _routes_as_lists(port, fids, src, dst) == want       # the tables kept
+
+
+def _twin_cables():
+    """Four hosts, two to a leaf on two cables each, two spines: every leaf
+    has two equal links into each of its hosts (none of the builders has)."""
+    cables = [(h, 4 + h // 2) for h in range(4) for _ in range(2)] + \
+        [(leaf, spine) for leaf in (4, 5) for spine in (6, 7)]
+    src = [x for a, b in cables for x in (a, b)]
+    dst = [x for a, b in cables for x in (b, a)]
+    n = len(src)
+    return dict(name="twin", n_hosts=4, n_nodes=8, link_src=np.array(src, np.int32),
+                link_dst=np.array(dst, np.int32), link_bw=np.full(n, 1e10),
+                link_delay=np.full(n, 1e-6))
+
+
+@pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1])
+def test_array_routes_over_parallel_cables_equal_the_reference(fid0):
+    """The last hop into a host on two cables is the hash's choice too."""
+    ref, port = ref_topology.Topology(**_twin_cables()), topology.Topology(**_twin_cables())
+    pairs = [(s, d) for s in range(8) for d in range(8)]
+    fid = fid0 + np.arange(len(pairs))
+    src, dst = (np.array(x) for x in zip(*pairs))
+    want = [ref.route(s, d, f) for f, (s, d) in zip(fid.tolist(), pairs)]
+    assert len({p[-1] for (s, d), p in zip(pairs, want) if d == 0 and p}) == 2
+    assert _routes_as_lists(port, fid, src, dst) == want
+
+
+@pytest.mark.parametrize("pair", [(3, 0), (0, 3), (3, 1), (0, 2), (3, 3), (1, 1)])
+def test_array_routes_without_a_path_raise_as_route(pair):
+    """On the islet, a flow to or from the node on no cable raises ``route``'s
+    error among routable flows; a node to itself has no hop, as in ``route``."""
+    port, ref = topology.Topology(**ISLET), ref_topology.Topology(**ISLET)
+    src, dst = np.array([0, pair[0], 1]), np.array([1, pair[1], 0])
+    fid = np.array([5, 6, 7])
+    if 3 in pair and pair[0] != pair[1]:
+        with pytest.raises(ValueError, match=f"no path {pair[0]}->{pair[1]} in islet"):
+            port.routes(fid, src, dst)
+        with pytest.raises(ValueError, match="no path"):
+            ref.route(pair[0], pair[1], 6)
+    else:
+        want = [ref.route(s, d, f) for f, s, d in zip(fid.tolist(), src, dst)]
+        assert _routes_as_lists(port, fid, src, dst) == want
+        if pair[0] == pair[1]:
+            assert want[1] == []
+
+
+@pytest.mark.parametrize("kind,params", TOPOLOGIES)
+def test_array_routes_from_a_node_to_itself_have_no_hop(kind, params):
+    """``src == dst`` gives a path of no link, between flows that have one,
+    and the fluid scenario still refuses such a flow."""
+    port = topology.TOPOLOGY_BUILDERS[kind](**params)
+    n = port.n_nodes
+    src = np.arange(n).repeat(2)
+    dst = np.stack([np.arange(n), (np.arange(n) + 1) % n], 1).ravel()
+    fid = np.arange(2 * n)
+    flat, hops = port.routes(fid, src, dst)
+    assert (hops[0::2] == 0).all() and (hops[1::2] > 0).all()
+    assert _routes_as_lists(port, fid, src, dst) == \
+        [port.route(int(s), int(d), int(f)) for f, s, d in zip(fid, src, dst)]
+    with pytest.raises(ValueError, match="has no path"):
+        FluidScenario.from_flows(port, [(0, 0, 1, 1e6), (1, 2, 2, 1e6)])
 
 
 SCENARIOS = {
