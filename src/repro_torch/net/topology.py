@@ -13,7 +13,7 @@ port may not import; the tests hold the two to identical outputs.
 from __future__ import annotations
 
 import dataclasses
-import itertools
+import functools
 from collections.abc import Callable
 
 import numpy as np
@@ -40,55 +40,14 @@ class Topology:
         for lid in range(self.n_links):
             adj[int(self.link_src[lid])].append((lid, int(self.link_dst[lid])))
         self.adj = adj
-        self._dist: dict[int, list[int]] = {}      # BFS root -> hop distances
-        # per destination: (hop distance of every node, -1 where unreached;
-        # each node's equal-cost next hops, filled as routes walk through it)
-        self._toward: dict[int, tuple[list[int], list[list[tuple[int, int]] | None]]] = {}
-        self._hops: _NextHops | None = None        # the array path's table, built by routes
 
     # ------------------------------------------------------------------ #
     # Routing
     # ------------------------------------------------------------------ #
-    def _bfs(self, root: int) -> list[int]:
-        """BFS hop distance from every node to ``root``, -1 where unreached
-        (reverse graph == forward graph here because every cable is
-        bidirectional), once per root."""
-        dist = self._dist.get(root)
-        if dist is not None:
-            return dist
-        dist = self._dist[root] = [-1] * self.n_nodes
-        dist[root] = 0
-        frontier = [root]
-        hops = 0
-        # reverse adjacency equals adjacency for our symmetric builders
-        while frontier:
-            hops += 1
-            nxt = []
-            for u in frontier:
-                for _, v in self.adj[u]:
-                    if dist[v] < 0:
-                        dist[v] = hops
-                        nxt.append(v)
-            frontier = nxt
-        return dist
-
-    def _table_to(self, dst: int) -> tuple[list[int], list[list[tuple[int, int]] | None]]:
-        """The hop distances to ``dst``, once per destination, and the table
-        of next hops toward it, empty until ``route`` fills it."""
-        table = self._toward.get(dst)
-        if table is not None:
-            return table
-        obs.count("topology.dist_builds")
-        ends = {v for _, v in self.adj[dst]}
-        if len(ends) == 1:
-            # a node on one neighbour (a host on its cable): every path to it
-            # ends through that neighbour, so the hosts of a switch share its BFS
-            dist = [d + 1 if d >= 0 else -1 for d in self._bfs(ends.pop())]
-            dist[dst] = 0
-        else:
-            dist = self._bfs(dst)
-        table = self._toward[dst] = (dist, [None] * self.n_nodes)
-        return table
+    @functools.cached_property
+    def _hops(self) -> _NextHops:
+        """The next-hop table, built at the first route."""
+        return _NextHops(self)
 
     def route(self, src: int, dst: int, flow_id: int) -> list[int]:
         """Deterministic ECMP: shortest path, ties broken by a hash of
@@ -97,74 +56,51 @@ class Topology:
         behavior, which is what makes contention patterns *reproducible*,
         the property Wormhole's memoization exploits).  The candidates at a
         hop are the node's neighbours one hop closer to ``dst``, in
-        adjacency order."""
+        adjacency order: one flow's walk of the next-hop table
+        (``_NextHops.path``)."""
         if src == dst:
             return []
-        dist, nexts = self._table_to(dst)
-        if dist[src] < 0:
-            raise ValueError(f"no path {src}->{dst} in {self.name}")
-        path: list[int] = []
-        node = src
-        step = 0
-        while node != dst:
-            cands = nexts[node]
-            if cands is None:
-                closer = dist[node] - 1
-                cands = nexts[node] = [(lid, v) for lid, v in self.adj[node]
-                                       if dist[v] == closer]
-            h = (flow_id * 1000003 + node * 10007 + step * 101) % len(cands)
-            lid, node = cands[h]
-            path.append(lid)
-            step += 1
-        return path
+        return self._hops.path(src, dst, flow_id)
 
     def routes(self, fid, src, dst) -> tuple[np.ndarray, np.ndarray]:
         """``route`` for a whole set of flows at once: ``flat``, every flow's
         link ids, flow after flow, and ``hops``, each flow's path length
         (int64; 0 where ``src == dst``).  All flows advance one hop a round
-        through a next-hop table (``_NextHops``) with ``route``'s hash in
-        int64 arithmetic, so every path is ``route``'s.  Where an id is past
-        what int64 holds of the hash, the flows go through ``route`` one by
-        one."""
+        on the rows of the next-hop table that ``route`` walks
+        (``_NextHops.walk``), each hop by ``route``'s hash, so every path is
+        ``route``'s.  Ids are int64, or Python ints where int64 does not
+        hold them."""
         try:
             fid = np.asarray(fid, np.int64)
         except OverflowError:
             fid = np.asarray(fid, object)
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
-        if self._hops is None:
-            self._hops = _NextHops(self)
-        # |fid * 1000003 + node * 10007 + step * 101| < 2**63, as steps < n_nodes
-        lim = (2**63 - 1 - self.n_nodes * 10108) // 1000003
-        if fid.dtype != np.int64 or not fid.size or fid.max() > lim or fid.min() < -lim:
-            paths = [self.route(s, d, f) for f, s, d in
-                     zip(fid.tolist(), src.tolist(), dst.tolist())]
-            hops = np.array([len(p) for p in paths], np.int64)
-            return (np.fromiter(itertools.chain.from_iterable(paths), np.int64,
-                                int(hops.sum())), hops)
-        fresh = [d for d in self._hops.add(dst).tolist() if d not in self._toward]
-        if fresh:
-            obs.count("topology.dist_builds", len(fresh))
-        out = self._hops.walk(fid, src, dst, self.name)
+        out = self._hops.walk(fid, src, dst)
         obs.count("topology.array_routes", len(fid))
         return out
 
 
 class _NextHops:
-    """A topology's equal-cost next hops as arrays, for ``Topology.routes``.
+    """A topology's equal-cost next hops: the one table that ``route`` and
+    ``routes`` walk.
 
     A destination on one neighbour ``s`` (a host on its cable) is reached
     through ``s``, every other destination is its own root: one BFS a
     root, for the roots of the destinations asked, all at once, kept for
     the object's life.  A root's row holds, for every node, its out-links
-    one hop closer to the root in ascending link id (``route``'s adjacency
-    order), as CSR: a count and an offset into one array of link ids.
-    Toward a one-cable ``d`` a path is a walk to ``s`` on ``s``'s row, then
-    one of the links into ``d``, which a first section of the table holds
-    by destination.  Like ``_bfs``, it takes every link to have its reverse,
-    as the builders' cables do."""
+    one hop closer to the root in ascending link id (adjacency order), as
+    CSR: a count and an offset into one array of link ids.  Toward a
+    one-cable ``d`` a path is a walk to ``s`` on ``s``'s row, then one of
+    the links into ``d``, which a first section of the table holds by
+    destination.  It takes every link to have its reverse, as the
+    builders' cables do.  The hop out of ``node`` at step ``step`` takes
+    candidate ``(fid * 1000003 + node * 10007 + step * 101) % c`` of its
+    ``c``; ``walk`` reduces ``fid`` modulo ``c`` first, which picks the
+    same one, so that any integer id hashes in int64."""
 
     def __init__(self, topo: Topology) -> None:
+        self.name = topo.name
         n = self.n = topo.n_nodes
         src = self.link_src = topo.link_src.astype(np.int64)
         dst = self.link_dst = topo.link_dst.astype(np.int64)
@@ -179,18 +115,22 @@ class _NextHops:
         cnt = np.bincount(dst, minlength=n)
         self.cnt, self.off = cnt, np.cumsum(cnt) - cnt
         self.cand = np.argsort(dst, kind="stable")         # the links into each node
+        # Python-list copies for ``path``'s one flow at a time, which a numpy
+        # scalar read a hop would slow by about half: ``_lists`` extends them to
+        # the rows built since, as ``path`` meets a destination
+        self.l_root, self.l_known, self.l_row = self.root.tolist(), [False] * n, []
+        self.l_cnt, self.l_off, self.l_cand = [], [], []   # the candidates as (link, next node)
 
-    def add(self, dst: np.ndarray) -> np.ndarray:
-        """Build the rows that the destinations ``dst`` need; returns the
-        destinations asked for the first time."""
-        if self.known[dst].all():
-            return dst[:0]
-        fresh = np.unique(dst[~self.known[dst]])
+    def _ask(self, fresh: list[int]) -> None:
+        """Count the destinations ``fresh``, asked for the first time, as
+        ``topology.dist_builds``, and build the rows of their roots that the
+        table lacks: one BFS from every such root at once."""
+        obs.count("topology.dist_builds", len(fresh))
         self.known[fresh] = True
         roots = np.unique(self.root[fresh])
         roots = roots[self.row[roots] < 0]
         if not roots.size:
-            return fresh
+            return
         n, k = self.n, len(roots)
         dist = np.full((k, n), -1, np.int64)
         dist[np.arange(k), roots] = 0
@@ -212,38 +152,70 @@ class _NextHops:
         self.off = np.concatenate([self.off, len(self.cand) + np.cumsum(cnt) - cnt])
         self.cnt = np.concatenate([self.cnt, cnt])
         self.cand = np.concatenate([self.cand, self.out[p]])
-        return fresh
 
-    def walk(self, fid: np.ndarray, src: np.ndarray, dst: np.ndarray,
-             name: str) -> tuple[np.ndarray, np.ndarray]:
-        """Every flow one hop a round, on the rows ``add`` built: toward its
-        root, then from a one-cable destination's root into it, each hop by
-        ``route``'s hash of (flow id, node, step)."""
+    def _lists(self, dst: int) -> None:
+        """Ask for ``dst`` as ``walk`` does, and extend the list copies to the
+        rows built since the last call."""
+        if not self.known[dst]:
+            self._ask([dst])
+        i, j = len(self.l_cnt), len(self.l_cand)
+        self.l_cnt += self.cnt[i:].tolist()
+        self.l_off += self.off[i:].tolist()
+        self.l_cand += zip(self.cand[j:].tolist(), self.link_dst[self.cand[j:]].tolist())
+        self.l_row = self.row.tolist()
+        self.l_known[dst] = True
+
+    def path(self, src: int, dst: int, fid: int) -> list[int]:
+        """One flow's links, hop by hop on the rows, as ``walk`` takes them."""
+        if not self.l_known[dst]:
+            self._lists(dst)
+        root = self.l_root[dst]
+        key = self.n * (self.l_row[root] + 1)
+        cnt, off, cand = self.l_cnt, self.l_off, self.l_cand
+        if not cnt[key + src] and src != root:             # no link closer to the root
+            raise ValueError(f"no path {src}->{dst} in {self.name}")
+        path: list[int] = []
+        node = src
+        h = fid * 1000003                                  # + step * 101 at each step
+        while node != root:
+            at = key + node
+            lid, node = cand[off[at] + (h + node * 10007) % cnt[at]]
+            path.append(lid)
+            h += 101
+        if node != dst:                                    # into a one-cable dst
+            path.append(cand[off[dst] + (h + node * 10007) % cnt[dst]][0])
+        return path
+
+    def walk(self, fid: np.ndarray, src: np.ndarray,
+             dst: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Every flow one hop a round, on the rows its destination needs:
+        toward its root, then from a one-cable destination's root into it."""
+        if not self.known[dst].all():
+            self._ask(np.unique(dst[~self.known[dst]]).tolist())
         root = self.root[dst]
         row = self.row[root]
         up = self.dist[row, src]                           # hops to the root
-        if up.min() < 0:
+        if (up < 0).any():
             i = int(np.argmax(up < 0))
-            raise ValueError(f"no path {src[i]}->{dst[i]} in {name}")
+            raise ValueError(f"no path {src[i]}->{dst[i]} in {self.name}")
         hops = up + (root != dst)
         hops[src == dst] = 0
-        end = np.cumsum(hops)
-        flat = np.empty(end[-1], np.int64)
-        h, node, last, to, key, pos, left = (fid * 1000003, src, root, dst,
-                                             self.n * (row + 1), end - hops, hops)
-        step = 0
-        while True:
+        pos = np.cumsum(hops) - hops
+        flat = np.empty(int(hops.sum()), np.int64)
+        node, last, to, key, left = src, root, dst, self.n * (row + 1), hops
+        for step in range(hops.max(initial=0)):
             go = left > step
             if not go.all():
-                if not go.any():
-                    return flat, hops
-                h, node, last, to, key, pos, left = (
-                    x[go] for x in (h, node, last, to, key, pos, left))
+                fid, node, last, to, key, pos, left = (
+                    x[go] for x in (fid, node, last, to, key, pos, left))
             at = np.where(node == last, to, key + node)    # into dst, else the row
-            lid = self.cand[self.off[at] + (h + node * 10007) % self.cnt[at]]
+            c = self.cnt[at]
+            h = (fid % c).astype(np.int64, copy=False) * 1000003 + node * 10007 + step * 101
+            lid = self.cand[self.off[at] + h % c]
             flat[pos] = lid
             node = self.link_dst[lid]
-            h, pos, step = h + 101, pos + 1, step + 1
+            pos = pos + 1
+        return flat, hops
 
 
 # ---------------------------------------------------------------------- #

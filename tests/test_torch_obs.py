@@ -234,19 +234,17 @@ def test_fluid_routes_every_flow_of_a_run_as_arrays(profiled):
                if n == "topology.array_routes") == flows
 
 
-@pytest.mark.parametrize("fid0,counted", [(0, True), (2**62, False), (2**64, False)])
-def test_array_routes_count_the_array_path_alone(profiled, fid0, counted):
-    """Flows whose ids are past what int64 holds of the hash go through
-    ``route`` one by one, which ``topology.array_routes`` does not count;
-    ``topology.dist_builds`` counts each destination once either way."""
+@pytest.mark.parametrize("fid0", [0, 2**62, 2**64])
+def test_array_routes_count_every_flow(profiled, fid0):
+    """Every flow goes through the array walk, whatever its id, even one
+    past what int64 holds, so ``topology.array_routes`` counts each;
+    ``topology.dist_builds`` counts each destination once."""
     topo = TopologySpec("clos", {"n_hosts": 16, "leaf_down": 4, "n_spines": 2}).build()
     src, dst = list(range(8)), [15 - s for s in range(8)]
     fid = [fid0 + i for i in range(8)]
     _, table, _ = profiled(lambda: topo.routes(fid, src, dst))
     assert table[("topology.dist_builds", None)] == {"count": 8}
-    assert (("topology.array_routes", None) in table) is counted
-    if counted:
-        assert table[("topology.array_routes", None)] == {"count": 8}
+    assert table[("topology.array_routes", None)] == {"count": 8}
 
 
 @pytest.mark.parametrize("backend", ["wormhole", "fluid"])

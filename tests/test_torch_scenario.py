@@ -6,7 +6,7 @@ import dataclasses
 import jax  # noqa: F401  (both frameworks in one process; data crosses as numpy)
 import numpy as np
 import pytest
-import torch  # noqa: F401
+import torch
 
 from repro.api.results import RunResult as RefRunResult
 from repro.api.scenario import Scenario as RefScenario
@@ -14,6 +14,7 @@ from repro.api.scenario import training_scenario as ref_training_scenario
 from repro.net import topology as ref_topology
 from repro.net.chaos import ChaosPlan as RefChaosPlan
 from repro.net.fluid_jax import FluidScenario as RefFluidScenario
+from repro_torch import obs
 from repro_torch.api import RunResult, Scenario, training_scenario
 from repro_torch.net import topology
 from repro_torch.net.chaos import ChaosPlan
@@ -80,7 +81,12 @@ def test_route_without_a_path_raises_as_the_reference(src, dst):
         assert port.route(src, dst, 5) == ref.route(src, dst, 5)
 
 
-@pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1])
+# 2**62 is an int64 whose hash int64 does not hold (past about 9.2e12), and
+# 2**64 + 3 no int64 at all: the array walk reduces such ids a hop at a time
+PAST_INT64_HASH = (2**62, 2**64 + 3)
+
+
+@pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1, *PAST_INT64_HASH])
 @pytest.mark.parametrize("kind,params", TOPOLOGIES)
 def test_routes_repeat_on_one_topology_and_on_a_fresh_one(kind, params, fid0):
     """A route taken again on the same topology, from its cached tables, is
@@ -97,11 +103,6 @@ def test_routes_repeat_on_one_topology_and_on_a_fresh_one(kind, params, fid0):
     assert [fresh.route(s, d, fid) for s, d, fid in reversed(pairs)] == first[::-1]
 
 
-# 2**62 is an int64 past the ids whose hash int64 holds (about 9.2e12), and
-# 2**64 + 3 no int64 at all: such flows go through route one by one
-PAST_INT64_HASH = (2**62, 2**64 + 3)
-
-
 def _routes_as_lists(topo, fid, src, dst):
     flat, hops = topo.routes(fid, src, dst)
     assert flat.dtype == hops.dtype == np.int64 and len(hops) == len(src)
@@ -111,7 +112,7 @@ def _routes_as_lists(topo, fid, src, dst):
 
 @pytest.mark.parametrize("fid0", [0, 7, 1_000_003, 2**40 + 1, *PAST_INT64_HASH])
 @pytest.mark.parametrize("kind,params", TOPOLOGIES)
-def test_array_routes_equal_route_and_the_reference(kind, params, fid0, monkeypatch):
+def test_array_routes_equal_route_and_the_reference(kind, params, fid0):
     """``Topology.routes`` on every host pair (a host to itself too) and
     every node toward every switch, at once: each flow's links are
     ``route``'s, on a fresh topology and in the JAX package."""
@@ -122,10 +123,6 @@ def test_array_routes_equal_route_and_the_reference(kind, params, fid0, monkeypa
         [(s, d) for d in range(ref.n_hosts, ref.n_nodes) for s in nodes]
     fids = [fid0 + i for i in range(len(pairs))]
     src, dst = (np.array(x, np.int64) for x in zip(*pairs))
-    if fid0 in PAST_INT64_HASH:
-        def refuse(*a, **k):
-            raise AssertionError("an id past the bound took the array path")
-        monkeypatch.setattr(topology._NextHops, "walk", refuse)
     got = _routes_as_lists(port, fids if fid0 > 2**63 else np.array(fids, np.int64),
                            src, dst)
     fresh = topology.TOPOLOGY_BUILDERS[kind](**params)
@@ -133,6 +130,47 @@ def test_array_routes_equal_route_and_the_reference(kind, params, fid0, monkeypa
     assert [fresh.route(s, d, f) for f, (s, d) in zip(fids, pairs)] == want
     assert got == want
     assert _routes_as_lists(port, fids, src, dst) == want       # the tables kept
+
+
+def _builds(fn):
+    """``fn()`` and the ``topology.dist_builds`` it counts, under a profiler."""
+    obs.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    builds = sum(row.get("count", 0) for (n, _), row in obs.table().items()
+                 if n == "topology.dist_builds")
+    obs.reset()
+    return out, builds
+
+
+@pytest.mark.parametrize("routes_first", [False, True], ids=["route_first", "routes_first"])
+@pytest.mark.parametrize("kind,params", TOPOLOGIES)
+def test_route_and_routes_build_each_destination_once(kind, params, routes_first):
+    """``route`` and ``routes`` walk one table: on a fresh topology each
+    destination is counted once, by whichever asks for it first, and both
+    give the reference's paths.  ``route`` takes the host pairs toward the
+    first two thirds of the hosts, ``routes`` the pairs of any two nodes
+    toward the nodes from the last two thirds of the hosts on, switches
+    included."""
+    ref = ref_topology.TOPOLOGY_BUILDERS[kind](**params)
+    port = topology.TOPOLOGY_BUILDERS[kind](**params)
+    h, n = ref.n_hosts, ref.n_nodes
+    one = [(s, d, 3 * i) for i, (s, d) in
+           enumerate((s, d) for d in range(2 * h // 3) for s in range(h))]
+    many = [(s, d, 3 * i + 1) for i, (s, d) in
+            enumerate((s, d) for d in range(h // 3, n) for s in range(n))]
+    src, dst, fid = (np.array(x, np.int64) for x in zip(*many))
+    calls = [lambda: [port.route(s, d, f) for s, d, f in one],
+             lambda: _routes_as_lists(port, fid, src, dst)]
+    asked = [{d for _, d, _ in one}, {d for _, d, _ in many}]
+    if routes_first:
+        calls, asked = calls[::-1], asked[::-1]
+    (first, n_first), (second, n_second) = _builds(calls[0]), _builds(calls[1])
+    assert n_first == len(asked[0]) and n_second == len(asked[1] - asked[0])
+    assert n_first + n_second == n
+    got = [first, second][::-1] if routes_first else [first, second]
+    assert got[0] == [ref.route(s, d, f) for s, d, f in one]
+    assert got[1] == [ref.route(s, d, f) for s, d, f in many]
 
 
 def _twin_cables():
