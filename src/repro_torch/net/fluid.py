@@ -32,6 +32,68 @@ from repro_torch.net.topology import Topology
 
 
 @dataclasses.dataclass
+class FluidPaths:
+    """A phase's flows routed, in compact form: the set entries of its
+    [F, L] incidence (a flow's row, a column for each of the phase's links
+    in ascending link id), with the line rates, base RTTs, sizes and link
+    bandwidths.  ``scenario`` builds the dense incidence from it.
+
+    ``key`` holds every input of a phase's solve but the flow sizes, which
+    ``fluid_converged_rates`` lifts to inf: phases with equal keys have
+    equal solves, bit for bit, on one device."""
+    cells: np.ndarray          # [nnz] int64 flat indices row * L + column, ascending
+    line_rate: np.ndarray      # [F] bytes/s
+    base_rtt: np.ndarray       # [F] s
+    size: np.ndarray           # [F] bytes
+    link_bw: np.ndarray        # [L] bytes/s
+    ecn_k: float = 64_000.0
+    mss: float = 1000.0
+
+    @classmethod
+    def from_flows(cls, topo: Topology, flows: list[tuple[int, int, int, float]],
+                   mtu: float = 1000.0, ecn_k: float = 64_000.0) -> FluidPaths:
+        """flows: (fid, src, dst, size)."""
+        with obs.span("fluid.route"):
+            # the paths as one flat array of link ids, flow after flow
+            fid, src, dst, size = zip(*flows) if flows else ((),) * 4
+            flat, hops = topo.routes(fid, src, dst)
+        with obs.span("fluid.incidence"):
+            if (hops == 0).any():
+                raise ValueError("a flow from a host to itself has no path")
+            starts = np.cumsum(hops) - hops
+            links, col = np.unique(flat, return_inverse=True)    # ascending link ids
+            # sorted, the set entries do not depend on the order of the links
+            # along a path, so phases that differ only in that share a key
+            cells = np.sort(np.repeat(np.arange(len(flows)), hops) * len(links) + col)
+            bw = topo.link_bw[links].astype(np.float64)
+            line = np.minimum.reduceat(topo.link_bw[flat], starts)
+            # each path's delays summed as one row, in the order numpy sums a
+            # path alone (reduceat would add them in another order)
+            delay = topo.link_delay[flat]
+            prop = np.empty(len(flows))
+            for k in np.unique(hops):
+                rows = np.flatnonzero(hops == k)
+                prop[rows] = delay[starts[rows, None] + np.arange(k)].sum(axis=1)
+            rtt = 2 * prop + (hops + 1) * mtu / line
+            return cls(cells=cells, line_rate=line, base_rtt=rtt,
+                       size=np.array(size, np.float64), link_bw=bw, ecn_k=ecn_k, mss=mtu)
+
+    def key(self) -> tuple:
+        """The solve's inputs but the sizes; F and L are the lengths of
+        ``line_rate`` and ``link_bw``."""
+        return (self.ecn_k, self.mss) + tuple(
+            a.tobytes() for a in (self.cells, self.line_rate, self.base_rtt, self.link_bw))
+
+    def scenario(self) -> FluidScenario:
+        M = np.zeros(len(self.line_rate) * len(self.link_bw), np.float32)
+        M[self.cells] = 1.0
+        return FluidScenario(incidence=M.reshape(len(self.line_rate), len(self.link_bw)),
+                             line_rate=self.line_rate, base_rtt=self.base_rtt,
+                             size=self.size, link_bw=self.link_bw, ecn_k=self.ecn_k,
+                             mss=self.mss)
+
+
+@dataclasses.dataclass
 class FluidScenario:
     """Dense numpy arrays describing one partition (or a padded batch slot);
     the reference's ``FluidScenario`` arrays fit as they are."""
@@ -47,30 +109,7 @@ class FluidScenario:
     def from_flows(cls, topo: Topology, flows: list[tuple[int, int, int, float]],
                    mtu: float = 1000.0, ecn_k: float = 64_000.0) -> FluidScenario:
         """flows: (fid, src, dst, size)."""
-        with obs.span("fluid.route"):
-            # the paths as one flat array of link ids, flow after flow
-            fid, src, dst, size = zip(*flows) if flows else ((),) * 4
-            flat, hops = topo.routes(fid, src, dst)
-        with obs.span("fluid.incidence"):
-            if (hops == 0).any():
-                raise ValueError("a flow from a host to itself has no path")
-            starts = np.cumsum(hops) - hops
-            links, col = np.unique(flat, return_inverse=True)    # ascending link ids
-            M = np.zeros((len(flows), len(links)), np.float32)
-            M[np.repeat(np.arange(len(flows)), hops), col] = 1.0
-            bw = topo.link_bw[links].astype(np.float64)
-            line = np.minimum.reduceat(topo.link_bw[flat], starts)
-            # each path's delays summed as one row, in the order numpy sums a
-            # path alone (reduceat would add them in another order)
-            delay = topo.link_delay[flat]
-            prop = np.empty(len(flows))
-            for k in np.unique(hops):
-                rows = np.flatnonzero(hops == k)
-                prop[rows] = delay[starts[rows, None] + np.arange(k)].sum(axis=1)
-            rtt = 2 * prop + (hops + 1) * mtu / line
-            return cls(incidence=M, line_rate=line, base_rtt=rtt,
-                       size=np.array(size, np.float64),
-                       link_bw=bw, ecn_k=ecn_k, mss=mtu)
+        return FluidPaths.from_flows(topo, flows, mtu, ecn_k).scenario()
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:

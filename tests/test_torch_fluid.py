@@ -232,6 +232,28 @@ def test_fluid_scenario_arrays_at_1024_gpus_equal_the_reference():
         assert (port.ecn_k, port.mss) == (ref.ecn_k, ref.mss)
 
 
+@pytest.mark.parametrize("family,n_gpus", [("gpt", 32), ("minimax-text-01", 64)])
+def test_fluid_scenario_from_compact_paths_equals_the_reference(family, n_gpus):
+    """``FluidScenario.from_flows``, built from the compact ``FluidPaths``
+    the fluid engine keys its solves on, holds the reference's arrays for
+    every phase with flows, dtype and all."""
+    from repro.net.topology import TOPOLOGY_BUILDERS as REF_BUILDERS
+    from repro_torch.api import training_scenario
+    scn = training_scenario(n_gpus=n_gpus, family=family, scale=1 / 256)
+    ref_topo = REF_BUILDERS[scn.topology.kind](**scn.topology.params)
+    port_topo = scn.build_topology()
+    phases = [ph for ph in scn.build_phases() if ph.flows]
+    assert len(phases) > 1
+    for ph in phases:
+        flows = [(f.fid, f.src, f.dst, f.size) for f in ph.flows]
+        ref = fluid_jax.FluidScenario.from_flows(ref_topo, flows)
+        port = fluid.FluidScenario.from_flows(port_topo, flows)
+        for name in ("incidence", "line_rate", "base_rtt", "size", "link_bw"):
+            a, b = getattr(port, name), getattr(ref, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (ph.name, name)
+        assert (port.ecn_k, port.mss) == (ref.ecn_k, ref.mss)
+
+
 def test_fluid_scenario_arrays_equal_the_reference_on_uneven_links():
     """Bandwidths and delays drawn per link, so a path's rate and delay
     depend on which links it takes and in which order they are summed."""

@@ -37,6 +37,7 @@ from repro_torch.models.params import leaves, map_tree
 from repro_torch.train import optimizer as O
 from repro_torch.train.train_loop import TrainConfig, make_train_step
 from repro_torch.net.fluid import fluid_run
+from test_torch_fluid_memo import distinct_solves
 
 pytestmark = pytest.mark.gpu
 RNG = np.random.default_rng(5)
@@ -214,11 +215,11 @@ def _close(a, b):
 
 def test_run_on_card_goes_through_the_kernels(cuda):
     scn = training_scenario(n_gpus=32, moe=True)
-    n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    distinct = distinct_solves(scn)
     cca_step.launches = fluid_scan.launches = steady_scan.launches = 0
     card = run(scn, backend="fluid")                 # the card is the default
-    # one scan per phase, its steady detector fused into it
-    assert (fluid_scan.launches, steady_scan.launches) == (n_phases, 0)
+    # one scan per distinct phase, its steady detector fused into it
+    assert (fluid_scan.launches, steady_scan.launches) == (distinct, 0)
     assert cca_step.launches == 0
     assert card.extras["device"] == torch.cuda.get_device_name(0)
     _close(card, run(scn, backend="fluid", device="cpu"))
@@ -240,7 +241,7 @@ def test_run_many_on_card_is_one_batched_run(cuda):
 def test_compare_packet_against_fluid_on_the_card(cuda):
     """tests/test_wormhole.py's ring workload (8 servers x 4 GPUs, 6 MB per
     flow) through compare(): the packet oracle on the host, the fluid
-    engine on the card, one fluid_scan per phase (one per wave)."""
+    engine on the card, one fluid_scan per distinct wave."""
     topo = TopologySpec("roft", {"n_servers": 8, "gpus_per_server": 4, "leaf_radix": 8,
                                  "n_spines": 2})
     flows = [FlowSpec(w * 32 + r * 8 + s, s * 4 + r, ((s + 1) % 8) * 4 + r, size=6e6,
@@ -250,7 +251,7 @@ def test_compare_packet_against_fluid_on_the_card(cuda):
     n_phases = sum(1 for ph in scn.build_phases() if ph.flows)
     fluid_scan.launches = 0
     cmp = compare(scn, backends=("packet", "fluid"))
-    assert fluid_scan.launches == n_phases == 2
+    assert fluid_scan.launches == distinct_solves(scn) and n_phases == 2
     assert list(cmp.results) == ["packet", "fluid"] and cmp.baseline == "packet"
     assert cmp["fluid"].extras["device"] == torch.cuda.get_device_name(0)
     (row,) = cmp.rows()

@@ -20,9 +20,11 @@ import torch
 
 from repro_torch import obs
 from repro_torch.api import FlowSpec, Scenario, TopologySpec, run, training_scenario
+from test_torch_fluid_memo import distinct_solves
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 CALLOUTS = ("wormhole.admit", "wormhole.finish", "wormhole.unpark", "wormhole.sample")
+# a phase's routing and incidence, then its solve's (a distinct phase's only)
 FLUID_SPANS = ("fluid.route", "fluid.incidence", "fluid.upload", "fluid.scan",
                "fluid.t_conv", "fluid.readback")
 WORKLOAD_ROWS = ("workload.build", "workload.flows", "workload.a2a_flows")
@@ -199,12 +201,19 @@ def test_wormhole_records_the_loop_callouts_and_lookups(profiled):
 
 
 def test_fluid_records_one_route_a_phase_and_no_sync_on_the_cpu(profiled):
+    """Every phase with flows is routed; each distinct one is solved once
+    (uploads, scan, ``_t_conv``, readback) and the others are hits."""
     scn = _gpt32()
     phases = sum(1 for ph in scn.build_phases() if ph.flows)
+    distinct = distinct_solves(scn)
+    assert distinct < phases
     _, table, events = profiled(lambda: run(scn, backend="fluid", device="cpu"))
     assert set(table) == {(n, None) for n in FLUID_SPANS + WORKLOAD_ROWS} | {
-        ("topology.dist_builds", "fluid.route"), ("topology.array_routes", "fluid.route")}
-    assert all(table[(n, None)]["calls"] == phases for n in FLUID_SPANS)
+        ("topology.dist_builds", "fluid.route"), ("topology.array_routes", "fluid.route"),
+        ("fluid.solve_hits", None)}
+    assert all(table[(n, None)]["calls"] == phases for n in FLUID_SPANS[:2])
+    assert all(table[(n, None)]["calls"] == distinct for n in FLUID_SPANS[2:])
+    assert table[("fluid.solve_hits", None)] == {"count": phases - distinct}
     assert not any(n == "fluid.syncs" for n, _ in table)
     _assert_nested(table, events)
 
